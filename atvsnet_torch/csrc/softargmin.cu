@@ -1,97 +1,274 @@
 // Fused soft-argmin over the depth axis, for Hopper (sm_90a).
 //
-//   depth[b, p] = sum_d sweep[b, d] * softmax_d(-cost[b, d, p]),  p = h * w + x,
+//   depth[b, p] = sum_d sweep[b, d] * softmax_d(-cost[b, d, p]),  p = y * w + x,
 //   sweep[b, d] = start[b] + d * interval[b]
 //
 // Replaces the Pallas TPU kernel atvsnet_tpu/ops/softargmin.py:_kernel, which held a
-// (D, rows, W) block in VMEM and reduced it in several passes. Here one thread owns one
-// output pixel and walks D once with an online softmax (running max, rescaled sum and
-// rescaled weighted sum), so the volume is read exactly once and only the depth is written.
+// (D, rows, W) block in on-chip memory and reduced it in several passes.
 //
-// Bound: memory. Per element the kernel does ~6 fp32 operations and moves 4 bytes (2 for
-// bf16), far below the H100's ~20 fp32 operations per byte of HBM bandwidth. At the main
-// path's shapes it reads B*D*h*w*4 bytes: 13.8 MB per native (1,128,120,224) call and
-// 55 MB per upsampled (1,128,120,896) row tile, i.e. 4.1 us and 16.4 us at the 3.35 TB/s
-// of an H100 SXM (2.0 TB/s on an H100 PCIe). The design serves that bound: adjacent
-// threads own adjacent pixels, so each load over D is one coalesced 128-byte row per
-// warp; loads are issued in chunks of 8 planes to keep several in flight per thread;
-// any width works (the ragged tail is masked), so there is no block-size logic.
+// Bound: bytes. Per cost element the kernel does ~6 fp32 operations and moves 4 bytes (2
+// for bf16), far below the ~20 fp32 operations per byte of device memory that an H100
+// can do. The volume is read exactly once and only the depth is written, so what decides
+// the time is how many bytes are in flight and whether every SM has work: at 3.35 TB/s
+// and 0.6-0.9 us of memory latency the card wants 2-3 MB outstanding at any moment.
+//
+// Design, in answer to that:
+//  - A block owns a tile of kTile = 64 adjacent pixels and all of D. Its 128 threads form
+//    kSlices groups of kLanes lanes; each group takes a contiguous slice of D and each
+//    lane a packet of adjacent pixels, so a block is a (slice, lane) grid over (D, tile):
+//    8 slices x 16 lanes for fp32, 16 x 8 for bf16. The (1,128,120,224) volume makes 420
+//    blocks, all resident at once on 132 SMs (8 blocks per SM at <= 64 registers).
+//  - Aligned path: a packet is 16 bytes of one plane (4 fp32 or 8 bf16 pixels) fetched
+//    with one streaming load (ld.global.cs: the volume is read once). It needs the base
+//    pointer and the plane stride h*w*elem_size to be multiples of 16 bytes. The scalar
+//    path is the same code with one-pixel packets and takes everything else.
+//  - Loads do not wait on arithmetic. A lane walks its slice in chunks of kChunk planes
+//    (128 bytes per lane) and starts the whole chunk's loads before the first exponent.
+//    At D = 128 a slice is two chunks and a block has 16 KB in flight, 128 KB per SM.
+//  - Each lane keeps the online-softmax triple (max, sum, weighted sum) per pixel in
+//    registers. The triples of the slices are combined through shared memory by one thread
+//    per pixel, and the tile's depths are written 16 bytes per lane on the aligned path.
+//  - A chunk or slice whose planes are all +inf (max of -cost = -inf) contributes
+//    (-inf, 0, 0): every exponent is taken against finite_or_zero(max), never as
+//    -inf - -inf. Pixels whose planes are all +inf give 0/0 = NaN, as a softmax does.
+//  - Each exponent is one multiply by log2(e) and one ex2.approx, taken of the difference
+//    to the max, instead of libm's longer expf sequence.
+//  - The sweep value is rebuilt as start + d * interval with unfused multiply and add, so
+//    that it rounds like the plain PyTorch version.
 //
 // Plain C interface for ctypes; the wrapper (atvsnet_torch/ops/softargmin.py) checks
-// shapes, dtypes and contiguity and launches on PyTorch's current stream.
+// shapes, dtypes and contiguity, picks the path and launches on PyTorch's current stream.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 8;
+constexpr int kTile = 64;         // pixels per block
+constexpr int kThreads = 128;     // threads per block
+constexpr int kMinBlocks = 8;     // blocks per SM that the register budget must allow
+constexpr int kChunkBytes = 128;  // bytes a lane of the aligned path loads before it computes
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// What one lane loads from one plane: Raw is the load's type, kPix the pixels it holds,
+// kChunk the planes loaded before any arithmetic.
+template <typename Raw> struct Packet;
+template <> struct Packet<float4> {          // aligned fp32
+  static constexpr int kPix = 4, kChunk = kChunkBytes / 16;
+};
+template <> struct Packet<uint4> {           // aligned bf16, two pixels per 32-bit word
+  static constexpr int kPix = 8, kChunk = kChunkBytes / 32;
+};
+template <> struct Packet<float> {           // scalar fp32
+  static constexpr int kPix = 1, kChunk = 8;
+};
+template <> struct Packet<unsigned short> {  // scalar bf16, as its bits
+  static constexpr int kPix = 1, kChunk = 8;
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-softargmin_kernel(const T* __restrict__ cost, const float* __restrict__ start,
-                  const float* __restrict__ interval, float* __restrict__ out,
-                  int B, int D, int HW) {
-  const int64_t pix = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (pix >= (int64_t)B * HW) return;
-  const int b = (int)(pix / HW);
-  const int p = (int)(pix - (int64_t)b * HW);
-  const T* src = cost + (int64_t)b * D * HW + p;
-  const float s0 = start[b];
-  const float step = interval[b];
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
 
-  float m = -INFINITY;  // running max of -cost
-  float sum = 0.f;      // sum_d exp(-cost - m)
-  float num = 0.f;      // sum_d sweep_d * exp(-cost - m)
-  for (int d0 = 0; d0 < D; d0 += kChunk) {
-    float v[kChunk];
+__device__ __forceinline__ void unpack(const float4& r, float (&v)[4]) {
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      v[j] = (d0 + j < D) ? -to_float(src[(int64_t)(d0 + j) * HW]) : -INFINITY;
-    float cm = m;
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = bf16_bits_to_float(w[i] & 0xffffu);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack(const float& r, float (&v)[1]) { v[0] = r; }
+__device__ __forceinline__ void unpack(const unsigned short& r, float (&v)[1]) {
+  v[0] = bf16_bits_to_float(r);
+}
+
+// exp(x) for x = -cost - max <= 0. The difference is taken first, in the cost's own
+// units, so its rounding error scales with the distance to the max and not with the cost;
+// then one multiply by log2(e) and the hardware's ex2.approx (relative error 2^-22), in
+// place of libm's longer expf sequence.
+__device__ __forceinline__ float exp_of(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// The reference point of every exponent: the max, or 0 while no finite value was seen.
+__device__ __forceinline__ float finite_or_zero(float m) { return m == -INFINITY ? 0.f : m; }
+
+// Online-softmax state of kPix pixels: running max of -cost, sum of exp(-cost - max) and
+// the same sum weighted by the sweep value.
+template <int kPix> struct Triple {
+  float m[kPix], sum[kPix], num[kPix];
+};
+
+// Fold kChunk planes into the state. v[j][p] is -cost of plane d0 + j at pixel p, or -inf
+// for a plane beyond the slice; s0 and step rebuild that plane's sweep value.
+template <int kPix, int kChunk>
+__device__ __forceinline__ void fold(Triple<kPix>& t, const float (&v)[kChunk][kPix],
+                                     int d0, float s0, float step) {
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) cm = fmaxf(cm, v[j]);
-    // rescale the running sums once per chunk (exp(-inf) = 0 on the first chunk)
-    const float r = expf(m - cm);
-    sum *= r;
-    num *= r;
-    m = cm;
+  for (int p = 0; p < kPix; ++p) {
+    float cm = t.m[p];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) cm = fmaxf(cm, v[j][p]);
+    const float ref = finite_or_zero(cm);
+    // rescale what was summed against the old max; exp(-inf - ref) = 0 while it was empty
+    const float r = exp_of(t.m[p] - ref);
+    float sum = t.sum[p] * r, num = t.num[p] * r;
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
-      const float e = expf(v[j] - m);
-      // sweep value as start + d * interval, rounded like the plain version (no fma)
+      const float e = exp_of(v[j][p] - ref);
+      // start + d * interval, rounded like the plain version (no fma)
       const float sw = __fadd_rn(s0, __fmul_rn((float)(d0 + j), step));
       sum += e;
       num = __fadd_rn(num, __fmul_rn(sw, e));
     }
+    t.m[p] = cm; t.sum[p] = sum; t.num[p] = num;
   }
-  out[pix] = num / sum;
 }
 
-template <typename T>
+// Depth of tile pixel px from the kSlices triples in shared memory.
+template <int kSlices>
+__device__ __forceinline__ float combine(const float (&part)[3][kSlices][kTile], int px) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < kSlices; ++s) m = fmaxf(m, part[0][s][px]);
+  const float ref = finite_or_zero(m);
+  float sum = 0.f, num = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSlices; ++s) {
+    const float w = exp_of(part[0][s][px] - ref);  // 0 for a slice that saw only +inf
+    sum += part[1][s][px] * w;
+    num += part[2][s][px] * w;
+  }
+  return num / sum;
+}
+
+template <typename Raw>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
+                  const float* __restrict__ interval, float* __restrict__ out,
+                  int B, int D, int HW) {
+  constexpr int kPix = Packet<Raw>::kPix;
+  constexpr int kChunk = Packet<Raw>::kChunk;
+  constexpr int kLanes = kTile / kPix;        // lanes that cover one plane of the tile
+  constexpr int kSlices = kThreads / kLanes;  // slices of D, one per group of kLanes threads
+  static_assert(kTile % 32 == 0 && kThreads >= kTile && kThreads % kLanes == 0 && kChunk >= 1,
+                "tile, block and packet sizes do not fit");
+  __shared__ __align__(16) float part[3][kSlices][kTile];
+
+  const int lane = threadIdx.x % kLanes;
+  const int slice = threadIdx.x / kLanes;
+  const uint32_t total = (uint32_t)B * HW;   // the wrapper keeps B*D*h*w below 2^31
+  // First pixel of this lane's packet, flat over (B, h*w). On the aligned path h*w is a
+  // multiple of kPix, so a packet lies inside one sample and is all inside or all outside.
+  const uint32_t pix0 = blockIdx.x * kTile + lane * kPix;
+
+  Triple<kPix> t;
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) { t.m[p] = -INFINITY; t.sum[p] = 0.f; t.num[p] = 0.f; }
+
+  if (pix0 < total) {
+    const int b = (int)(pix0 / (uint32_t)HW);
+    const int per = (D + kSlices - 1) / kSlices;
+    const int begin = min(D, slice * per);
+    const int end = min(D, begin + per);
+    const int64_t stride = HW / kPix;         // plane stride in packets
+    const Raw* src = cost + ((int64_t)b * D * HW + (pix0 - (uint32_t)b * HW)) / kPix;
+    const float s0 = start[b];
+    const float step = interval[b];
+
+    for (int d0 = begin; d0 < end; d0 += kChunk) {
+      Raw raw[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        raw[j] = (d0 + j < end) ? __ldcs(src + (int64_t)(d0 + j) * stride) : Raw{};
+      float v[kChunk][kPix];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        unpack(raw[j], v[j]);
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) v[j][p] = (d0 + j < end) ? -v[j][p] : -INFINITY;
+      }
+      fold<kPix, kChunk>(t, v, d0, s0, step);
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    part[0][slice][lane * kPix + p] = t.m[p];
+    part[1][slice][lane * kPix + p] = t.sum[p];
+    part[2][slice][lane * kPix + p] = t.num[p];
+  }
+  __syncthreads();
+
+  // The first kTile threads combine the slices, one pixel each. On the aligned path four
+  // neighbours hand their depths to one lane, which writes 16 bytes (B*h*w is then a
+  // multiple of 4, so a group of four is all inside or all outside).
+  if (threadIdx.x < kTile) {
+    const uint32_t o = blockIdx.x * kTile + threadIdx.x;
+    const float res = combine<kSlices>(part, threadIdx.x);
+    if constexpr (kPix > 1) {
+      const float r1 = __shfl_down_sync(0xffffffffu, res, 1);
+      const float r2 = __shfl_down_sync(0xffffffffu, res, 2);
+      const float r3 = __shfl_down_sync(0xffffffffu, res, 3);
+      if (threadIdx.x % 4 == 0 && o < total)
+        __stcs(reinterpret_cast<float4*>(out + o), make_float4(res, r1, r2, r3));
+    } else {
+      if (o < total) out[o] = res;
+    }
+  }
+}
+
+// An empty launch of the grid a soft-argmin call uses: its device time is what a launch
+// costs before any byte moves.
+__global__ void __launch_bounds__(kThreads) noop_kernel() {}
+
+unsigned grid_blocks(int B, int HW) {
+  return (unsigned)(((int64_t)B * HW + kTile - 1) / kTile);
+}
+
+template <typename Vec, typename Scalar>
 int launch(const void* cost, const void* start, const void* interval, void* out,
-           int B, int D, int HW, void* stream) {
-  const int64_t total = (int64_t)B * HW;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  softargmin_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)cost, (const float*)start, (const float*)interval, (float*)out, B, D, HW);
+           int B, int D, int HW, int aligned, void* stream_ptr) {
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const unsigned blocks = grid_blocks(B, HW);
+  const float* s = (const float*)start;
+  const float* i = (const float*)interval;
+  if (!aligned) {
+    softargmin_kernel<Scalar><<<blocks, kThreads, 0, stream>>>(
+        (const Scalar*)cost, s, i, (float*)out, B, D, HW);
+    return (int)cudaGetLastError();
+  }
+  // 16-byte loads and stores fault on anything else
+  if ((uintptr_t)cost % 16 || (uintptr_t)out % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  softargmin_kernel<Vec><<<blocks, kThreads, 0, stream>>>(
+      (const Vec*)cost, s, i, (float*)out, B, D, HW);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// cost (B, D, HW) contiguous, start and interval (B,) fp32, out (B, HW) fp32. `aligned`
+// selects the 16-byte path; its conditions are checked here again. Returns a cudaError_t.
 extern "C" int atvsnet_softargmin_f32(const void* cost, const void* start, const void* interval,
-                                      void* out, int B, int D, int HW, void* stream) {
-  return launch<float>(cost, start, interval, out, B, D, HW, stream);
+                                      void* out, int B, int D, int HW, int aligned,
+                                      void* stream) {
+  return launch<float4, float>(cost, start, interval, out, B, D, HW, aligned, stream);
 }
 
 extern "C" int atvsnet_softargmin_bf16(const void* cost, const void* start, const void* interval,
-                                       void* out, int B, int D, int HW, void* stream) {
-  return launch<__nv_bfloat16>(cost, start, interval, out, B, D, HW, stream);
+                                       void* out, int B, int D, int HW, int aligned,
+                                       void* stream) {
+  return launch<uint4, unsigned short>(cost, start, interval, out, B, D, HW, aligned, stream);
+}
+
+extern "C" int atvsnet_softargmin_noop(int B, int HW, void* stream) {
+  noop_kernel<<<grid_blocks(B, HW), kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

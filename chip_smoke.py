@@ -6,19 +6,24 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
   2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu into build/atvsnet_torch/
-  3. kernel     the CUDA soft-argmin against its plain PyTorch version at the main
-                path's shapes and edge shapes (rtol 1e-5, atol 1e-6)
+  3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
+                1e-6, NaN at the same pixels) at the main path's shapes, at edge shapes
+                (odd h*w, D = 1, 12, 130, B = 3, a pointer that is not 16-byte aligned)
+                and on volumes with planes of +inf cost; each line names the kernel's
+                path, "aligned" (16-byte loads) or "scalar", and the path's counter is
+                checked
   4. small      a 3-view 64x96 D32 forward on trained weights, on the GPU (kernel) and on
                 the CPU (plain path): the two must agree and recover the rendered scene
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
                 spheres weights on synthetic_scene(seed=0): shapes, finiteness, exactly
-                14 kernel launches, and agreement with softargmin_impl="torch"
+                14 kernel launches, all on the aligned path, and agreement with
+                softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms)
   6. timing     steady-state forward time and peak memory (default and deterministic
                 cuDNN algorithms), and per-shape kernel times beside the plain
-                version's and the HBM bound
+                version's, the HBM bound and an empty launch of the same grid
   7. profile    device time of one forward by kind of kernel, and its top kernels
-                (torch.profiler)
+                (torch.profiler); the idle share is read against a CUDA-event bracket
 Then the kernels line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
@@ -125,24 +130,91 @@ def device_ms(fn, buffers, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def misaligned_view(cost):
+    """The same values as a contiguous tensor whose data_ptr() is one element past a
+    16-byte boundary, which the kernel's aligned path cannot take."""
+    flat = torch.empty(cost.numel() + 1, device=cost.device, dtype=cost.dtype)
+    view = flat[1:].view(cost.shape)
+    view.copy_(cost)
+    return view
+
+
+def with_inf_planes(cost, which):
+    """Set planes of +inf cost at every 5th pixel: the kernel's first chunk of 8, the upper
+    half of D (whole slices on every path: the last 4 of 8 and 8 of 16 on the aligned path,
+    the second of 2 on the scalar path), every plane but one, or every plane at pixel (0, 0)
+    only (the one case whose depth is NaN)."""
+    B, D, h, w = cost.shape
+    flat = cost.clone().view(B, D, h * w)
+    if which == "first8":
+        flat[:, :8, ::5] = torch.inf
+    elif which == "slice":
+        flat[:, D // 2:, ::5] = torch.inf
+    elif which == "all_but_one":
+        keep = flat[:, D // 3, ::5].clone()
+        flat[:, :, ::5] = torch.inf
+        flat[:, D // 3, ::5] = keep
+    elif which == "all":
+        flat[:, :, 0] = torch.inf
+    else:
+        raise ValueError(which)
+    return flat.view(B, D, h, w)
+
+
+def kernel_cases():
+    """(name, shape, dtype, path expected, transform of the seeded inputs or None)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main native", (1, 128, 120, 224), f32, "aligned", None),
+             ("main native bf16", (1, 128, 120, 224), bf16, "aligned", None),
+             ("main tile", (1, 128, 120, 896), f32, "aligned", None),
+             ("ragged pixel edge", (2, 16, 8, 4095), f32, "aligned", None),
+             ("ragged pixel edge, odd h*w", (2, 16, 7, 4095), f32, "scalar", None),
+             ("wide", (1, 128, 8, 4096), f32, "aligned", None),
+             ("peaked", (1, 8, 4, 8), f32, "aligned", "peaked"),
+             ("odd h*w", (1, 12, 3, 33), f32, "scalar", None),
+             ("odd h*w bf16", (1, 32, 5, 7), bf16, "scalar", None),
+             ("D=1", (2, 1, 6, 8), f32, "aligned", None),
+             ("D=12", (1, 12, 6, 40), f32, "aligned", None),
+             ("D=130", (1, 130, 6, 40), f32, "aligned", None),
+             ("D=130 bf16", (1, 130, 6, 40), bf16, "aligned", None),
+             ("B=3", (3, 48, 10, 12), f32, "aligned", None),
+             ("B=3 scalar", (3, 48, 7, 9), f32, "scalar", None),
+             ("misaligned pointer", (1, 128, 120, 224), f32, "scalar", "misaligned"),
+             ("misaligned pointer bf16", (1, 128, 120, 224), bf16, "scalar", "misaligned")]
+    for which in ("first8", "slice", "all_but_one", "all"):
+        cases += [(f"+inf {which}", (1, 128, 120, 224), f32, "aligned", which),
+                  (f"+inf {which} bf16", (1, 128, 120, 224), bf16, "aligned", which),
+                  (f"+inf {which} scalar", (2, 130, 3, 33), f32, "scalar", which)]
+    return cases
+
+
 def phase_kernel() -> float:
-    cases = [((1, 128, 120, 224), torch.float32, False), ((1, 128, 120, 224), torch.bfloat16, False),
-             ((1, 128, 120, 896), torch.float32, False), ((2, 16, 8, 4095), torch.float32, False),
-             ((1, 128, 8, 4096), torch.float32, False), ((1, 8, 4, 8), torch.float32, True)]
     worst = 0.0
-    for i, (shape, dtype, peaked) in enumerate(cases):
-        cost, ds, di = kernel_inputs(shape, dtype, seed=i, peaked=peaked)
+    for i, (name, shape, dtype, path, transform) in enumerate(kernel_cases()):
+        cost, ds, di = kernel_inputs(shape, dtype, seed=i, peaked=transform == "peaked")
+        if transform == "misaligned":
+            cost = misaligned_view(cost)
+        elif transform not in (None, "peaked"):
+            cost = with_inf_planes(cost, transform)
+        before = dict(S.softargmin_cuda.path_launches)
         got = S.softargmin_cuda(cost, ds, di)
         ref = S.softargmin_torch(cost, ds, di)
         torch.cuda.synchronize()
-        err = (got - ref).abs()
-        ok = bool((err <= ATOL + RTOL * ref.abs()).all())
-        if peaked:
+        took = [p for p in S.PATHS if S.softargmin_cuda.path_launches[p] == before[p] + 1]
+        nan_ref, nan_got = torch.isnan(ref), torch.isnan(got)
+        err = torch.where(nan_ref, torch.zeros_like(ref), (got - ref).abs())
+        ok = (took == [path] and torch.equal(nan_ref, nan_got)
+              and bool((err <= ATOL + RTOL * ref.abs())[~nan_ref].all()))
+        # only the all-planes case has NaN, at pixel (0, 0) of every sample, on both sides
+        ok = ok and int(nan_ref.sum()) == (shape[0] if transform == "all" else 0)
+        if transform == "peaked":
             ok = ok and bool(((got - 2.5).abs() <= 1e-4).all())
-        emit(phase="kernel", shape=list(shape), dtype=str(dtype).split(".")[-1], peaked=peaked,
-             max_abs_err=float(err.max()), max_rel_err=float((err / ref.abs()).max()), ok=ok)
+        emit(phase="kernel", case=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
+             path=took, nan_pixels=int(nan_got.sum()), max_abs_err=float(err.max()),
+             max_rel_err=float((err / ref.abs())[~nan_ref].max()), ok=ok)
         if not ok:
-            raise AssertionError(f"soft-argmin kernel disagrees with the plain version at {shape}")
+            raise AssertionError(f"soft-argmin kernel case '{name}' at {shape}: wrong path, NaN "
+                                 "pattern or values against the plain version")
         worst = max(worst, float(err.max()))
     return worst
 
@@ -170,9 +242,11 @@ def phase_small():
 def phase_forward(model, images, cams, cfg):
     torch.backends.cudnn.deterministic = True
     S.softargmin_cuda.launches = 0
+    S.softargmin_cuda.path_launches = dict.fromkeys(S.PATHS, 0)
     out = multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
     launches = S.softargmin_cuda.launches
+    by_path = dict(S.softargmin_cuda.path_launches)
     B, N, H, W = 1, cfg.view_num, cfg.max_h, cfg.max_w
     h, w, D, P = H // 4, W // 4, cfg.max_d, N - 1
     shapes = {"depth": (B, h, w, 1), "depth_up": (B, H, W, 1), "depth_agg_initial": (B, h, w, 1),
@@ -195,14 +269,17 @@ def phase_forward(model, images, cams, cfg):
                    for v in agree.values())
     depth = out["depth"]
     emit(phase="forward", launches=launches, expected_launches=EXPECTED_LAUNCHES,
-         bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
+         launches_by_path=by_path, bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
          depth_min=float(depth.min()), depth_max=float(depth.max()),
          kernel_vs_plain=agree, diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
-         ok=not bad and not nonfinite and launches == EXPECTED_LAUNCHES and agree_ok)
+         ok=(not bad and not nonfinite and launches == EXPECTED_LAUNCHES
+             and by_path["aligned"] == launches and agree_ok))
     if bad or nonfinite:
         raise AssertionError(f"forward outputs wrong: shapes {bad}, non-finite {nonfinite}")
     if launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"{launches} soft-argmin kernel launches, expected {EXPECTED_LAUNCHES}")
+    if by_path["aligned"] != launches:
+        raise AssertionError(f"the main path left the kernel's aligned path: {by_path}")
     if not agree_ok:
         raise AssertionError(f"kernel and plain forwards disagree: {agree}")
     return launches
@@ -230,20 +307,30 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
 
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = "bytes"
-    for shape, dtype in [((1, 128, 120, 224), torch.float32), ((1, 128, 120, 896), torch.float32),
-                         ((1, 128, 120, 224), torch.bfloat16)]:
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the main path's two calls, then what it does not run: bf16, and the scalar path at
+    # the native shape (through a pointer that is not 16-byte aligned)
+    for shape, dtype, path in [((1, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 896), f32, "aligned"),
+                               ((1, 128, 120, 224), bf16, "aligned"),
+                               ((1, 128, 120, 224), f32, "scalar"), ((1, 128, 120, 224), bf16, "scalar")]:
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
         bufs = [kernel_inputs(shape, dtype, seed=100 + i) for i in range(nbuf)]
+        if path == "scalar":
+            bufs = [(misaligned_view(c), ds, di) for c, ds, di in bufs]
+        if {S.kernel_path(c.data_ptr(), shape[2] * shape[3], dtype) for c, _, _ in bufs} != {path}:
+            raise AssertionError(f"timing buffers at {shape} are not all on the {path} path")
         k_ms = device_ms(S.softargmin_cuda, bufs, 50)
         p_ms = device_ms(S.softargmin_torch, bufs, 20)
+        e_ms = device_ms(lambda c, ds, di: S.empty_launch(c), bufs, 50)
         b_ms, b_by = bound_ms(shape, elem, kind)
         emit(phase="timing", what="softargmin", shape=list(shape), dtype=str(dtype).split(".")[-1],
-             kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+             path=path, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+             empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms,
              kernel_gb_per_s=(math.prod(shape) * elem) / (k_ms * 1e-3) / 1e9,
              library_ms=None, library="none: no single PyTorch call computes soft-argmin")
         del bufs
-        if dtype == torch.float32:
+        if dtype == f32 and path == "aligned":
             n = MAIN_SHAPES[shape]
             totals["ms"] += n * k_ms
             totals["plain_ms"] += n * p_ms
@@ -259,11 +346,15 @@ def phase_profile(model, images, cams, cfg):
 
     multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         multi_view_forward(model, images, cams, cfg)
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    event_ms = start.elapsed_time(end)
     events = prof.key_averages()
     attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
             else "self_cuda_time_total")
@@ -284,8 +375,11 @@ def phase_profile(model, images, cams, cfg):
         split[cat] += getattr(e, attr) / 1e3
     busy = sum(split.values())
     top = sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:15]
-    emit(phase="profile", wall_ms=wall * 1e3, device_busy_ms=busy,
-         device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)), device_ms_by_kind=split,
+    # Idle share against the device's own clock between the two events. The profiler's
+    # summed kernel time can exceed that span (it did, against the host's wall time); the
+    # share is then reported as it is, negative, and not cut to 0.
+    emit(phase="profile", wall_ms=wall * 1e3, event_ms=event_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / event_ms, device_ms_by_kind=split,
          top_kernels=[{"name": e.key[:90], "device_ms": getattr(e, attr) / 1e3, "calls": e.count}
                       for e in top])
 

@@ -28,20 +28,81 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape,dtype", [((2, 16, 8, 24), torch.float32),
-                                         ((2, 16, 8, 4095), torch.float32),
-                                         ((1, 32, 5, 7), torch.bfloat16),
-                                         ((1, 12, 3, 33), torch.float32)])
-def test_kernel_matches_plain(cuda, shape, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    cost = (torch.randn(shape, device=cuda, generator=g) * 3).to(dtype)
-    ds = torch.rand(shape[0], device=cuda, generator=g) + 0.3
-    di = torch.rand(shape[0], device=cuda, generator=g) * 0.1 + 0.01
-    before = S.softargmin_cuda.launches
+def _inputs(shape, dtype, device):
+    g = torch.Generator(device=device).manual_seed(0)
+    cost = (torch.randn(shape, device=device, generator=g) * 3).to(dtype)
+    ds = torch.rand(shape[0], device=device, generator=g) + 0.3
+    di = torch.rand(shape[0], device=device, generator=g) * 0.1 + 0.01
+    return cost, ds, di
+
+
+def _launch_and_compare(cost, ds, di, path):
+    """One launch on the expected path; values and NaN positions as the plain version's."""
+    before, by_path = S.softargmin_cuda.launches, dict(S.softargmin_cuda.path_launches)
     got = S.softargmin_cuda(cost, ds, di)
+    torch.cuda.synchronize()
     assert S.softargmin_cuda.launches == before + 1
+    by_path[path] += 1
+    assert S.softargmin_cuda.path_launches == by_path
     ref = S.softargmin_torch(cost, ds, di)
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL, equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("shape,dtype,path", [((2, 16, 8, 24), torch.float32, "aligned"),
+                                              ((2, 16, 8, 4095), torch.float32, "aligned"),
+                                              ((2, 16, 7, 4095), torch.float32, "scalar"),
+                                              ((1, 32, 5, 7), torch.bfloat16, "scalar"),
+                                              ((1, 12, 3, 33), torch.float32, "scalar"),
+                                              ((2, 1, 6, 8), torch.float32, "aligned"),
+                                              ((1, 12, 6, 40), torch.bfloat16, "aligned"),
+                                              ((1, 130, 6, 40), torch.float32, "aligned"),
+                                              ((1, 130, 6, 40), torch.bfloat16, "aligned"),
+                                              ((3, 48, 10, 12), torch.float32, "aligned"),
+                                              ((3, 48, 7, 9), torch.float32, "scalar")])
+def test_kernel_matches_plain(cuda, shape, dtype, path):
+    _launch_and_compare(*_inputs(shape, dtype, cuda), path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_pointer_takes_the_scalar_kernel(cuda, dtype):
+    """A contiguous view one element into a buffer: not 16-byte aligned, still a kernel."""
+    cost, ds, di = _inputs((1, 128, 24, 32), dtype, cuda)
+    flat = torch.empty(cost.numel() + 1, device=cuda, dtype=dtype)
+    view = flat[1:].view(cost.shape)
+    view.copy_(cost)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert S.kernel_path(cost.data_ptr(), 24 * 32, dtype) == "aligned"
+    got = _launch_and_compare(view, ds, di, "scalar")
+    torch.testing.assert_close(got, _launch_and_compare(cost, ds, di, "aligned"),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,dtype,path", [((1, 128, 24, 32), torch.float32, "aligned"),
+                                              ((1, 128, 24, 32), torch.bfloat16, "aligned"),
+                                              ((2, 130, 3, 33), torch.float32, "scalar")])
+@pytest.mark.parametrize("which", ["first8", "slice", "all_but_one", "all"])
+def test_inf_planes(cuda, which, shape, dtype, path):
+    """+inf cost in the kernel's first chunk, in the upper half of D (whole slices on both
+    paths), in every plane but one (finite depth), and in every plane of pixel 0 (NaN there,
+    as in the plain version)."""
+    cost, ds, di = _inputs(shape, dtype, cuda)
+    B, D = shape[:2]
+    flat = cost.view(B, D, -1)
+    if which == "first8":
+        flat[:, :8, ::5] = torch.inf
+    elif which == "slice":
+        flat[:, D // 2:, ::5] = torch.inf
+    elif which == "all_but_one":
+        keep = flat[:, D // 3, ::5].clone()
+        flat[:, :, ::5] = torch.inf
+        flat[:, D // 3, ::5] = keep
+    else:
+        flat[:, :, 0] = torch.inf
+    got = _launch_and_compare(cost, ds, di, path)
+    nan = torch.isnan(got).view(B, -1)
+    assert int(nan.sum()) == (B if which == "all" else 0)
+    assert which != "all" or bool(nan[:, 0].all())
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -59,9 +120,12 @@ def test_forward_launches_the_kernel_and_matches_cpu(cuda):
     cfg = PipelineConfig(view_num=3, max_d=8, max_h=32, max_w=32)
     images, cams = synthetic_scene(view_num=3, H=32, W=32, D=8, seed=7)
     S.softargmin_cuda.launches = 0
+    S.softargmin_cuda.path_launches = dict.fromkeys(S.PATHS, 0)
     gpu = multi_view_forward(init_model(cfg, device=cuda), images, cams, cfg)
-    # 2 per pair x 2 pairs + AAM1 + native final depth + one 32-row upsample tile
+    # 2 per pair x 2 pairs + AAM1 + native final depth + one 32-row upsample tile, all with
+    # 16-byte-aligned planes (8x8 and 8x32 fp32)
     assert S.softargmin_cuda.launches == 7
+    assert S.softargmin_cuda.path_launches == {"aligned": 7, "scalar": 0}
     cpu = multi_view_forward(init_model(cfg, device="cpu"), images, cams, cfg)
     np.testing.assert_allclose(gpu["depth"].cpu().numpy(), cpu["depth"].numpy(),
                                rtol=1e-4, atol=1e-4)

@@ -87,3 +87,101 @@ def test_dispatch_picks_plain_version_for_cpu_tensors():
     assert S.softargmin_cuda.launches == before
     with pytest.raises(ValueError, match="planes"):
         S.softargmin(args[0], 16, *args[2:])
+
+
+@pytest.mark.parametrize("slices", [1, 2, 8])
+@pytest.mark.parametrize("D", [1, 12, 16, 130])
+def test_split_version_matches_pallas_interpret(D, slices):
+    """The mirror of the CUDA kernel's arithmetic (D in slices, chunks of 8, base-2
+    exponents) against the JAX kernel: same tolerance, the sums only change order."""
+    cost, ds, di = _inputs(2, D, 3, 8, seed=10 + D)
+    ref = np.asarray(jsoftargmin(jnp.asarray(cost), D, jnp.asarray(ds), jnp.asarray(di),
+                                 interpret=True))
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
+    got = S.softargmin_split_torch(*args, slices=slices)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), S.softargmin_torch(*args).numpy(), rtol=RTOL, atol=ATOL)
+
+
+def _with_inf(cost, which):
+    """+inf cost at every other pixel of the last row: the first chunk of 8 planes, the whole
+    second quarter of D, or every plane but one."""
+    cost = cost.copy()
+    D = cost.shape[1]
+    if which == "leading8":
+        cost[:, :8, -1, ::2] = np.inf
+    elif which == "slice":
+        cost[:, D // 4:D // 2, -1, ::2] = np.inf
+    else:
+        keep = cost[:, D // 3, -1, ::2].copy()
+        cost[:, :, -1, ::2] = np.inf
+        cost[:, D // 3, -1, ::2] = keep
+    return cost
+
+
+@pytest.mark.parametrize("slices", [1, 4, 8])
+@pytest.mark.parametrize("which", ["leading8", "slice", "all_but_one"])
+def test_inf_planes_get_probability_zero(which, slices):
+    """Planes of +inf cost mixed with finite ones: the plain version, the split version and
+    the JAX kernel agree on a finite depth. The running update and the combine both meet a
+    max of -inf here (a first chunk or a whole slice that is all +inf)."""
+    cost, ds, di = _inputs(2, 32, 3, 8, seed=20)
+    cost = _with_inf(cost, which)
+    ref = np.asarray(jsoftargmin(jnp.asarray(cost), 32, jnp.asarray(ds), jnp.asarray(di),
+                                 interpret=True))
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
+    plain = S.softargmin_torch(*args).numpy()
+    split = S.softargmin_split_torch(*args, slices=slices).numpy()
+    assert np.isfinite(ref).all() and np.isfinite(plain).all() and np.isfinite(split).all()
+    np.testing.assert_allclose(plain, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(split, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("slices", [1, 4])
+def test_all_inf_pixel_is_nan_as_in_the_plain_version(slices):
+    cost, ds, di = _inputs(1, 16, 2, 4, seed=21)
+    cost[:, :, 1, 2] = np.inf
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
+    plain = S.softargmin_torch(*args)
+    split = S.softargmin_split_torch(*args, slices=slices)
+    expected = torch.zeros(1, 2, 4, 1, dtype=torch.bool)
+    expected[0, 1, 2] = True
+    assert torch.equal(torch.isnan(plain), expected) and torch.equal(torch.isnan(split), expected)
+    torch.testing.assert_close(split[~expected], plain[~expected], rtol=RTOL, atol=ATOL)
+
+
+def test_split_version_rejects_bad_slice_counts():
+    cost, ds, di = _inputs(1, 8, 2, 4, seed=22)
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
+    with pytest.raises(ValueError, match="positive"):
+        S.softargmin_split_torch(*args, slices=0)
+    with pytest.raises(ValueError, match="positive"):
+        S.softargmin_split_torch(*args, slices=2, chunk=0)
+
+
+@pytest.mark.parametrize("ptr,hw,dtype,path", [
+    (0x7f0000000000, 120 * 224, torch.float32, "aligned"),    # the main path's native call
+    (0x7f0000000000, 120 * 896, torch.float32, "aligned"),    # and its upsample row tile
+    (0x7f0000000000, 120 * 224, torch.bfloat16, "aligned"),
+    (0x7f0000000010, 8 * 4095, torch.float32, "aligned"),     # odd width, h*w still a multiple of 4
+    (0x7f0000000000, 3 * 33, torch.float32, "scalar"),        # odd h*w
+    (0x7f0000000000, 5 * 7, torch.bfloat16, "scalar"),
+    (0x7f0000000000, 4 * 5, torch.bfloat16, "scalar"),        # 40-byte planes
+    (0x7f0000000000, 4 * 6, torch.bfloat16, "aligned"),       # 48-byte planes
+    (0x7f0000000004, 120 * 224, torch.float32, "scalar"),     # a view one element into a buffer
+    (0x7f0000000002, 120 * 224, torch.bfloat16, "scalar"),
+    (0x7f0000000008, 120 * 224, torch.float32, "scalar"),
+])
+def test_kernel_path_is_a_function_of_pointer_plane_size_and_dtype(ptr, hw, dtype, path):
+    assert S.kernel_path(ptr, hw, dtype) == path
+
+
+def test_path_counters_do_not_move_without_a_launch():
+    cost, ds, di = _inputs(1, 8, 4, 4, seed=5)
+    before = dict(S.softargmin_cuda.path_launches)
+    assert set(before) == set(S.PATHS) == {"aligned", "scalar"}
+    S.softargmin(torch.from_numpy(cost), 8, torch.from_numpy(ds), torch.from_numpy(di))
+    with pytest.raises(ValueError, match="CUDA"):
+        S.softargmin_cuda(torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
+    assert S.softargmin_cuda.path_launches == before
