@@ -42,8 +42,10 @@ class PipelineConfig:
     bn_eps: float = 1e-3
     # rematerialize per-pair stages under autograd; no effect on inference.
     remat: bool = False
-    # Batch weight-shared sweeps through one set of CRM/refine convs. Not ported yet:
-    # multi_view_forward raises for pair_batch=True.
+    # Batch weight-shared sweeps through one set of CRM/refine convs: the two directions
+    # of a pair in stage 1, all N-1 refinements in stage 3. The same math as the
+    # sequential path (normalization statistics are per sample), at a higher peak
+    # memory; PERF.md holds the measured seconds and bytes of both.
     pair_batch: bool = False
     # Soft-argmin implementation: "auto" launches the CUDA kernel for CUDA tensors and
     # uses the plain PyTorch version for CPU tensors; "cuda" / "torch" force one.

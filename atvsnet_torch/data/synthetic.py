@@ -9,7 +9,11 @@ with intrinsics at the 1/4 cost-volume scale.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from atvsnet_torch.data import image_io
 
 
 def rotation(axis, angle) -> np.ndarray:
@@ -317,3 +321,16 @@ def synthetic_batch(view_num=3, B=1, H=32, W=32, D=8, seed=0):
         images = np.concatenate(reps, axis=0)
         cams = np.concatenate([cams] * B, axis=0)
     return images, cams
+
+
+def write_example_dir(data_root: str, scene: dict) -> None:
+    """Write a render_multiplane_scene result as an example/{i} directory, the layout
+    data.preprocess.load_example_dir reads: {v}.jpg (uint8), {v}_cam.npy and 0_gt.npy
+    (the metric ground truth repeated 4x to the images' size). Not in the JAX package's
+    copy of this module; encoding goes through data.image_io."""
+    os.makedirs(data_root, exist_ok=True)
+    for v, (image, cam) in enumerate(zip(scene["images"][0], scene["cams"][0])):
+        image_io.imwrite(os.path.join(data_root, f"{v}.jpg"), np.uint8(np.round(image * 255.0)))
+        np.save(os.path.join(data_root, f"{v}_cam.npy"), cam)
+    gt = scene["depth_gt_metric"]
+    np.save(os.path.join(data_root, "0_gt.npy"), gt.repeat(4, axis=0).repeat(4, axis=1))

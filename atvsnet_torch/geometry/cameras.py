@@ -8,6 +8,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,14 @@ def split_cam(cam: torch.Tensor):
     t = cam[..., 0, :3, 3:4]
     K = cam[..., 1, :3, :3]
     return K, R, t
+
+
+def scale_camera_np(cam: np.ndarray, scale: float) -> np.ndarray:
+    """Scale the intrinsics (fx, fy, cx, cy) of one (2, 4, 4) cam for a resized image
+    (numpy, host side; reference atvsnet/preprocess.py:27-36)."""
+    new_cam = np.copy(cam)
+    new_cam[1][0][0] = cam[1][0][0] * scale
+    new_cam[1][1][1] = cam[1][1][1] * scale
+    new_cam[1][0][2] = cam[1][0][2] * scale
+    new_cam[1][1][2] = cam[1][1][2] * scale
+    return new_cam

@@ -6,7 +6,9 @@
   Stage 4  AAM2 + soft-argmin     native and 4x-upsampled depth (+ confidence)
 
 The JAX package's lax.scan over pairs is a Python loop here; all volumes stay on the
-device.
+device. With cfg.pair_batch the two sweep directions of a pair (stage 1) and all N-1
+refinements (stage 3) each run as one batch instead: the same math, fewer and larger
+convolutions, more memory.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from atvsnet_torch.models.tvsnet import (
     aam_output_conv,
     extract_features,
     prepare_inputs,
+    refinement,
     tvsnet_base,
     tvsnet_refine,
 )
@@ -34,8 +37,6 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
     Runs on the model's device. upsample=False skips the 4x-upsampled outputs
     (no depth_up / confidence_up keys).
     """
-    if cfg.pair_batch:
-        raise NotImplementedError("pair_batch is not ported yet")
     images, cams = prepare_inputs(model, images, cams, cfg)
     N = images.shape[1]
     if N != cfg.view_num or N <= 2:
@@ -59,6 +60,7 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
         prob_volumes.append(out.prob_volume)
         depth_views.append(out.depth_view)
     filtered_costs = torch.stack(filtered_costs)   # (P, B, D, h, w, C)
+    depth_views = torch.stack(depth_views)         # (P, B, h, w, 1)
 
     # ---- stage 2: AAM1 ----
     cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1)  # (B, D, h, w, C)
@@ -73,14 +75,21 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
     # ---- stage 3: per-pair refinement ----
     # reference_compat: the reference's per-pair visual hull always reads camera 1
     hull_cam = cams[:, 1] if cfg.reference_compat else None
-    refined_probs, refined_costs = [], []
-    for view_i in range(1, N):
-        rp, rc = tvsnet_refine(model, depth_agg, depth_views[view_i - 1], prob_agg, cost_agg,
-                               ref_cam, cams[:, view_i], shallow_ref, shallow[:, view_i], cfg,
-                               depth_start, depth_interval, hull_view_cam=hull_cam)
-        refined_probs.append(rp)
-        refined_costs.append(rc)
-    refined_costs = torch.stack(refined_costs)
+    if cfg.pair_batch:
+        cost_res, prob_res = refine_pairs_batched(model, depth_agg, depth_views, prob_agg, cams,
+                                                  shallow, cfg, depth_start, depth_interval,
+                                                  hull_cam)
+        refined_probs = prob_agg[None] + prob_res.to(prob_agg.dtype)
+        refined_costs = cost_agg[None] + cost_res.to(cost_agg.dtype)
+    else:
+        refined_probs, refined_costs = [], []
+        for view_i in range(1, N):
+            rp, rc = tvsnet_refine(model, depth_agg, depth_views[view_i - 1], prob_agg, cost_agg,
+                                   ref_cam, cams[:, view_i], shallow_ref, shallow[:, view_i], cfg,
+                                   depth_start, depth_interval, hull_view_cam=hull_cam)
+            refined_probs.append(rp)
+            refined_costs.append(rc)
+        refined_probs, refined_costs = torch.stack(refined_probs), torch.stack(refined_costs)
 
     # ---- stage 4: AAM2 + (upsampled) soft-argmin ----
     cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2)
@@ -104,8 +113,8 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
         "depth_agg_initial": depth_agg,
         "prob_volume_agg": prob_agg,
         "prob_volumes": torch.stack(prob_volumes),        # (P, B, D, h, w)
-        "refined_prob_volumes": torch.stack(refined_probs),
-        "depth_views": torch.stack(depth_views),          # (P, B, h, w, 1)
+        "refined_prob_volumes": refined_probs,
+        "depth_views": depth_views,
     }
     if upsample:
         out["depth_up"] = depth_up                        # (B, 4h, 4w, 1)
@@ -115,6 +124,39 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
         if upsample:
             out["confidence_up"] = conf_up
     return out
+
+
+def refine_pairs_batched(model: ATVSNet, depth_agg, depth_views, prob_agg, cams, shallow,
+                         cfg: PipelineConfig, depth_start, depth_interval, hull_cam=None):
+    """Stage 3 for all P = N - 1 pairs as one batch of P * B through one set of refine-net
+    convs; the shared aggregated volumes tile over the pairs.
+
+    depth_agg (B, h, w, 1), depth_views (P, B, h, w, 1), prob_agg (B, D, h, w),
+    cams (B, N, 2, 4, 4), shallow (B, N, h, w, F). Returns the residuals pair-leading:
+    cost (P, B, D, h, w, C) and prob (P, B, D, h, w).
+
+    Exact without any group argument: batch_stat_norm's statistics are per sample, so
+    every stacked pair is normalized by itself, as in the per-pair loop.
+    """
+    B, N = cams.shape[:2]
+    P = N - 1
+
+    def tile_pairs(x):
+        """(B, ...) -> (P * B, ...): P copies stacked on the batch axis."""
+        return x.repeat((P,) + (1,) * (x.ndim - 1))
+
+    def fold_pairs(x):
+        """(B, P, ...) -> (P * B, ...), pair-major like the stacked stage-1 outputs."""
+        return x.transpose(0, 1).reshape((P * B,) + x.shape[2:])
+
+    cost_res, prob_res = refinement(
+        model, tile_pairs(depth_agg), depth_views.reshape((P * B,) + depth_views.shape[2:]),
+        tile_pairs(cams[:, 0]), fold_pairs(cams[:, 1:]), tile_pairs(shallow[:, 0]),
+        fold_pairs(shallow[:, 1:]), tile_pairs(prob_agg), cfg, depth_start.repeat(P),
+        depth_interval.repeat(P),
+        hull_view_cam=None if hull_cam is None else tile_pairs(hull_cam))
+    return (cost_res.reshape((P, B) + cost_res.shape[1:]),
+            prob_res.reshape((P, B) + prob_res.shape[1:]))
 
 
 def center_images(images: torch.Tensor) -> torch.Tensor:

@@ -100,11 +100,25 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
 
     The tiled-reference half of the cost volume is D-constant, so it enters the CRM
     input convs as 2D convs (the (warped, ref_feature) tuple); only the warped half is
-    materialized.
+    materialized. cfg.pair_batch runs the two directions as one batch of 2 (the
+    soft-argmin then sees one (2B, D, h, w) volume in the place of two (B, D, h, w)).
     """
-    if cfg.pair_batch:
-        raise NotImplementedError("pair_batch is not ported yet")
     D = cfg.max_d
+
+    if cfg.pair_batch:
+        # Both directions as two elements of one batch through one set of CRM convs.
+        # Exact, with no group argument anywhere: batch_stat_norm takes its statistics
+        # per sample, so each stacked sweep is normalized by itself, as it is alone.
+        B = ref_feature.shape[0]
+        src = torch.cat([view_feature, ref_feature], dim=0)
+        dst = torch.cat([ref_feature, view_feature], dim=0)
+        cam_a = torch.cat([ref_cam, view_cam], dim=0)
+        cam_b = torch.cat([view_cam, ref_cam], dim=0)
+        ds2, di2 = depth_start.repeat(2), depth_interval.repeat(2)
+        homos = get_homographies(cam_a, cam_b, D, ds2, di2, cfg.inverse_depth)
+        filtered2, prob2 = model.crm((plane_sweep_warp(src, homos), dst), eps=cfg.bn_eps)
+        depth2 = prob2depth(prob2, D, ds2, di2, impl=cfg.softargmin_impl)
+        return PairOutputs(depth2[:B], prob2[:B], filtered2[:B], depth2[B:])
 
     def sweep(view_f, ref_c, view_c):
         h = get_homographies(ref_c, view_c, D, depth_start, depth_interval, cfg.inverse_depth)

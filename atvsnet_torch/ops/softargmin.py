@@ -11,7 +11,7 @@ build/atvsnet_torch/libatvsnet_torch_kernels.so and bound with ctypes.
 paths, both CUDA: "aligned" reads 16 bytes per lane and needs the volume's pointer and
 its plane stride h*w*element_size to be multiples of 16 bytes; "scalar" is the same code
 with one-element loads and takes everything else. `kernel_path` picks one and
-`softargmin_cuda.path_launches` counts each. `softargmin_torch` is the plain PyTorch
+`softargmin_cuda.path_launches` counts each (and `shape_launches` each volume shape). `softargmin_torch` is the plain PyTorch
 version that the kernel is held against; `softargmin_split_torch` is a plain version that
 mirrors the kernel's split of D into slices and chunks. `softargmin` picks by `impl`
 ("auto" = the kernel for CUDA tensors, `softargmin_torch` for CPU tensors). There is no
@@ -182,11 +182,19 @@ def softargmin_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
         raise RuntimeError(f"softargmin kernel launch failed on the {path} path: cudaError {err}")
     softargmin_cuda.launches += 1
     softargmin_cuda.path_launches[path] += 1
+    shape = (B, D, h, w)
+    softargmin_cuda.shape_launches[shape] = softargmin_cuda.shape_launches.get(shape, 0) + 1
     return out
 
 
-softargmin_cuda.launches = 0
-softargmin_cuda.path_launches = dict.fromkeys(PATHS, 0)
+def reset_launch_counts() -> None:
+    """Set the kernel's launch counts (total, per path, per volume shape) to 0."""
+    softargmin_cuda.launches = 0
+    softargmin_cuda.path_launches = dict.fromkeys(PATHS, 0)
+    softargmin_cuda.shape_launches = {}
+
+
+reset_launch_counts()
 
 
 def empty_launch(cost_volume: torch.Tensor) -> None:

@@ -7,6 +7,10 @@ Its path fem/conv0_x_0/conv1/w is the parameter fem.conv0_x_0.conv1.w here.
 Layouts: a conv kernel TF (k..., in, out) becomes PyTorch's (out, in, k...); a
 transpose-conv kernel TF (k..., out, in) becomes conv_transpose's (in, out, k...). Both
 are the same permutation (layers.tf_to_torch). Biases and betas are copied as they are.
+
+init_model (models/tvsnet.py) builds a model with random weights from a seeded
+torch.Generator, for callers that have no parameter file; its draws are not the JAX
+package's init_params draws.
 """
 
 from __future__ import annotations
@@ -19,8 +23,11 @@ import torch
 
 from atvsnet_torch import resolve_device
 from atvsnet_torch.config import PipelineConfig
-from atvsnet_torch.models.tvsnet import ATVSNet
+from atvsnet_torch.models.tvsnet import ATVSNet, init_model
 from atvsnet_torch.nn.layers import tf_to_torch, torch_to_tf
+
+__all__ = ["export_jax_params", "flatten", "init_model", "load_jax_params", "load_model",
+           "load_npz", "save_params"]
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -67,6 +74,12 @@ def export_jax_params(model: ATVSNet) -> dict:
         t = p.detach().cpu()
         out[name.replace(".", "/")] = (torch_to_tf(t) if t.ndim > 2 else t).numpy()
     return out
+
+
+def save_params(path: str, model: ATVSNet) -> None:
+    """Write `model` as the flat '/'-keyed .npz in the JAX package's layouts: the file its
+    utils/ckpt.load_params and this module's load_model both read."""
+    np.savez(path if path.endswith(".npz") else path + ".npz", **export_jax_params(model))
 
 
 def load_model(params, cfg: PipelineConfig, device=None) -> ATVSNet:

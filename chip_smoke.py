@@ -24,7 +24,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 version's, the HBM bound and an empty launch of the same grid
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket
-Then the kernels line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
+  8. pair_batch the same forward with pair_batch=True against pair_batch=False (cuDNN's
+                deterministic algorithms): depths agree within the bounds stated at
+                BATCH_MEAN_DIFF, the launches per volume shape are as reckoned, seconds (in
+                turns, both kinds of cuDNN algorithm) and peak memory of each; then the
+                forward stage by stage (seconds and peak memory of each stage), with
+                stages 1 and 3 batched against per pair on the same inputs
+  9. serving    serving.DepthEstimator at the same size: warmup, predict on uint8 frames
+                (shapes, finiteness, launches, agreement with the bare forward on the same
+                prepared inputs), a second bucket that pads a 250x300 request, predict_many
+                against predict, median runtime_s of 5 requests, an off-bucket
+                preprocessed request that must raise
+ 10. example    cli.example.run_example on an example/0 directory written into a temp dir
+                (5 rendered views, 480x896, D=128): the files, a finite error report
+Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
 nothing of JAX or of atvsnet_tpu.
@@ -37,16 +50,25 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from atvsnet_torch.cli.example import run_example
 from atvsnet_torch.config import PipelineConfig
-from atvsnet_torch.data.synthetic import render_multiplane_scene, synthetic_scene
-from atvsnet_torch.models.atvsnet import multi_view_forward
+from atvsnet_torch.data.preprocess import prepare_mvs_sample
+from atvsnet_torch.data.synthetic import render_multiplane_scene, synthetic_scene, write_example_dir
+from atvsnet_torch.geometry.cameras import scale_camera_np
+from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
+                                          refine_pairs_batched, sweep_to_depth)
+from atvsnet_torch.geometry.depth_regression import prob2depth, prob2depth_upsample
+from atvsnet_torch.models.tvsnet import (aam_aggregate_stacked, aam_output_conv, extract_features,
+                                         prepare_inputs, refinement, tvsnet_base)
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
+from atvsnet_torch.serving import DepthEstimator
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPHERES = os.path.join(ROOT, "artifacts", "trained_demo", "spheres_params.npz")
@@ -59,6 +81,21 @@ FLOPS_PER_ELEMENT = 6  # negate, max, subtract, exp, add, multiply-add per cost 
 # AAM1 + the native final depth at (1,128,120,224); 4 row tiles at (1,128,120,896)
 MAIN_SHAPES = {(1, 128, 120, 224): 10, (1, 128, 120, 896): 4}
 EXPECTED_LAUNCHES = sum(MAIN_SHAPES.values())
+# the same forward with out_prob_map=True, which DepthEstimator serves: a confidence map
+# needs the whole softmax volume, so AAM1, the native final depth and the 4 row tiles go
+# through the plain formula (geometry/depth_regression.prob2depth) and only stage 1's
+# 2 per pair x 4 pairs launch the kernel
+PROB_MAP_SHAPES = {(1, 128, 120, 224): 8}
+# the same forward with pair_batch=True: stage 1 sends both directions of a pair as one
+# (2, D, h, w) volume, 1 launch per pair x 4 pairs; AAM1, the native final depth and the
+# 4 row tiles as in MAIN_SHAPES
+PAIR_BATCH_SHAPES = {(2, 128, 120, 224): 4, (1, 128, 120, 224): 2, (1, 128, 120, 896): 4}
+# peak memory of the pair_batch=True forward as reckoned BEFORE its first run on a card,
+# from the sequential forward's 23.2 GB taken to be one CRM pass and its cuDNN workspace:
+# stage 1 doubles the batch, stage 3 quadruples a ~1.5 GB working set, so at most twice.
+# It is printed beside the measured peak, which showed the premise wrong: the 23.2 GB is
+# the FEM's, and batching the pairs does not move it (PERF.md).
+PAIR_BATCH_PEAK_RECKONED = 2 * 23.2e9
 # kernel vs plain soft-argmin inside the full forward, both with cuDNN's deterministic
 # algorithms: its default ones are not run-to-run reproducible, and refinement turns
 # their noise into flipped nearest-rounding and visual-hull decisions (on an H100 80GB
@@ -69,13 +106,59 @@ EXPECTED_LAUNCHES = sum(MAIN_SHAPES.values())
 # at most, and beyond DIFF_AT at most 0.5% of pixels, where a ~1e-6 gap may still flip
 # a rounding; a systematic error would move most pixels.
 DIFF_AT, MAX_DIFF_SHARE, MAX_DIFF = 1e-4, 0.005, 1e-3
+DEPTH_KEYS = ("depth", "depth_up", "depth_agg_initial", "depth_views")
+# A batched pass against the unbatched one (pair_batch, predict_many), both with cuDNN's
+# deterministic algorithms: cuDNN picks other algorithms at another batch size, so the
+# same stage on the same inputs differs by up to 3.4e-5 of its scale (measured on an H100
+# 80GB HBM3, 700 W: stage-1 volumes 8.4e-4 at scale 24.6, refinement residuals 2.0e-4 at
+# scale 16.8), and refinement's nearest-rounding and visual-hull decisions flip on that noise,
+# as they do run to run with the default algorithms. Measured there on this noise-image
+# scene: the final depth of pair_batch=True against False differs by 2.0e-4 on average,
+# at 26% of pixels beyond 1e-4, at 0.23% beyond 1e-2, at most by 0.067. So what precedes
+# refinement (depth_views, depth_agg_initial) is held to the bounds above, stage 1 and
+# stage 3 batched against per pair on the SAME inputs to STAGE_REL_DIFF of the output's
+# scale, and the final depths to: mean difference at most BATCH_MEAN_DIFF, beyond
+# BATCH_DIFF_AT at most BATCH_MAX_SHARE of pixels. A wrong pairing of volumes, cameras or
+# statistics would move every pixel by far more.
+STAGE_REL_DIFF = 3e-4
+BATCH_MEAN_DIFF, BATCH_DIFF_AT, BATCH_MAX_SHARE = 1e-3, 1e-2, 0.01
 # GPU (kernel, cuDNN) vs CPU (plain, oneDNN) at the small size with trained weights:
 # measured 4.8e-7 sweep units; bound 1e-4
 SMALL_MAX_DIFF = 1e-4
+# DepthEstimator.predict against the bare forward on the same prepared inputs, both with
+# cuDNN's deterministic algorithms: the same kernels on the same values, so metric depths
+# and confidences (away from integer bin indices) are held to 1e-5
+SERVING_MAX_DIFF = 1e-5
 
 
 def emit(**record):
     print(json.dumps(record), flush=True)
+
+
+def shape_counts(counts: dict) -> dict:
+    """A {shape: launches} dict with keys JSON can carry."""
+    return {"x".join(map(str, shape)): n for shape, n in counts.items()}
+
+
+def depth_differences(a: dict, b: dict, keys) -> dict:
+    """For each key: mean and max difference, and the shares of elements beyond DIFF_AT and
+    beyond BATCH_DIFF_AT."""
+    stats = {}
+    for k in keys:
+        d = (torch.as_tensor(a[k]) - torch.as_tensor(b[k])).abs()
+        stats[k] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                    "share_over": float((d > DIFF_AT).float().mean()),
+                    "share_over_batch_diff_at": float((d > BATCH_DIFF_AT).float().mean())}
+    return stats
+
+
+def within_kernel_bounds(stats: dict) -> bool:
+    return all(v["max_abs"] <= MAX_DIFF and v["share_over"] <= MAX_DIFF_SHARE for v in stats.values())
+
+
+def within_batch_bounds(stats: dict) -> bool:
+    return all(v["mean_abs"] <= BATCH_MEAN_DIFF and v["share_over_batch_diff_at"] <= BATCH_MAX_SHARE
+               for v in stats.values())
 
 
 def nvidia_smi_line() -> str:
@@ -167,6 +250,7 @@ def kernel_cases():
     cases = [("main native", (1, 128, 120, 224), f32, "aligned", None),
              ("main native bf16", (1, 128, 120, 224), bf16, "aligned", None),
              ("main tile", (1, 128, 120, 896), f32, "aligned", None),
+             ("main pair_batch", (2, 128, 120, 224), f32, "aligned", None),
              ("ragged pixel edge", (2, 16, 8, 4095), f32, "aligned", None),
              ("ragged pixel edge, odd h*w", (2, 16, 7, 4095), f32, "scalar", None),
              ("wide", (1, 128, 8, 4096), f32, "aligned", None),
@@ -241,12 +325,12 @@ def phase_small():
 
 def phase_forward(model, images, cams, cfg):
     torch.backends.cudnn.deterministic = True
-    S.softargmin_cuda.launches = 0
-    S.softargmin_cuda.path_launches = dict.fromkeys(S.PATHS, 0)
+    S.reset_launch_counts()
     out = multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
     launches = S.softargmin_cuda.launches
     by_path = dict(S.softargmin_cuda.path_launches)
+    by_shape = dict(S.softargmin_cuda.shape_launches)
     B, N, H, W = 1, cfg.view_num, cfg.max_h, cfg.max_w
     h, w, D, P = H // 4, W // 4, cfg.max_d, N - 1
     shapes = {"depth": (B, h, w, 1), "depth_up": (B, H, W, 1), "depth_agg_initial": (B, h, w, 1),
@@ -255,29 +339,25 @@ def phase_forward(model, images, cams, cfg):
     bad = [k for k, s in shapes.items() if tuple(out[k].shape) != s]
     nonfinite = [k for k in shapes if not bool(torch.isfinite(out[k]).all())]
 
-    S.softargmin_cuda.launches = 0
+    S.reset_launch_counts()
     plain = multi_view_forward(model, images, cams, cfg.replace(softargmin_impl="torch"))
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
     if S.softargmin_cuda.launches != 0:
         raise AssertionError("softargmin_impl='torch' launched the kernel")
-    agree = {}
-    for k in ("depth", "depth_up", "depth_agg_initial", "depth_views"):
-        d = (out[k] - plain[k]).abs()
-        agree[k] = {"max_abs": float(d.max()), "share_over": float((d > DIFF_AT).float().mean())}
-    agree_ok = all(v["max_abs"] <= MAX_DIFF and v["share_over"] <= MAX_DIFF_SHARE
-                   for v in agree.values())
+    agree = depth_differences(out, plain, DEPTH_KEYS)
+    agree_ok = within_kernel_bounds(agree)
     depth = out["depth"]
     emit(phase="forward", launches=launches, expected_launches=EXPECTED_LAUNCHES,
-         launches_by_path=by_path, bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
+         launches_by_path=by_path, launches_by_shape=shape_counts(by_shape), bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
          depth_min=float(depth.min()), depth_max=float(depth.max()),
          kernel_vs_plain=agree, diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
-         ok=(not bad and not nonfinite and launches == EXPECTED_LAUNCHES
+         ok=(not bad and not nonfinite and by_shape == MAIN_SHAPES
              and by_path["aligned"] == launches and agree_ok))
     if bad or nonfinite:
         raise AssertionError(f"forward outputs wrong: shapes {bad}, non-finite {nonfinite}")
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"{launches} soft-argmin kernel launches, expected {EXPECTED_LAUNCHES}")
+    if by_shape != MAIN_SHAPES:
+        raise AssertionError(f"soft-argmin kernel launches {by_shape}, expected {MAIN_SHAPES}")
     if by_path["aligned"] != launches:
         raise AssertionError(f"the main path left the kernel's aligned path: {by_path}")
     if not agree_ok:
@@ -308,10 +388,10 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = "bytes"
     f32, bf16 = torch.float32, torch.bfloat16
-    # the main path's two calls, then what it does not run: bf16, and the scalar path at
-    # the native shape (through a pointer that is not 16-byte aligned)
+    # the flagship forward's two calls and the pair_batch forward's stacked one, then what
+    # no forward here runs: bf16, and the scalar path at the native shape (through a pointer that is not 16-byte aligned)
     for shape, dtype, path in [((1, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 896), f32, "aligned"),
-                               ((1, 128, 120, 224), bf16, "aligned"),
+                               ((2, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 224), bf16, "aligned"),
                                ((1, 128, 120, 224), f32, "scalar"), ((1, 128, 120, 224), bf16, "scalar")]:
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
@@ -330,7 +410,7 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
              kernel_gb_per_s=(math.prod(shape) * elem) / (k_ms * 1e-3) / 1e9,
              library_ms=None, library="none: no single PyTorch call computes soft-argmin")
         del bufs
-        if dtype == f32 and path == "aligned":
+        if dtype == f32 and path == "aligned" and shape in MAIN_SHAPES:
             n = MAIN_SHAPES[shape]
             totals["ms"] += n * k_ms
             totals["plain_ms"] += n * p_ms
@@ -384,6 +464,265 @@ def phase_profile(model, images, cams, cfg):
                       for e in top])
 
 
+def timed_forward(model, images, cams, cfg, **kw):
+    """One forward bracketed by synchronize(): (outputs, seconds, peak bytes, launches by shape)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    S.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = multi_view_forward(model, images, cams, cfg, **kw)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            dict(S.softargmin_cuda.shape_launches))
+
+
+def stage_breakdown(model, images, cams, cfg) -> tuple[dict, dict]:
+    """The forward stage by stage (models.tvsnet's functions, as multi_view_forward calls
+    them), with stage 1 and stage 3 both per pair and batched on the SAME inputs.
+
+    Returns ({stage: {"seconds", "peak_bytes"}} of the second of two rounds, and
+    {stage: {"max_abs", "scale"}} of batched against per-pair outputs).
+    """
+    images, cams = prepare_inputs(model, images, cams, cfg)
+    start, interval = cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1]
+    batched_cfg = cfg.replace(pair_batch=True)
+    pairs = range(1, cfg.view_num)
+    stages, diffs = {}, {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = {"seconds": time.perf_counter() - t0,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+        return out
+
+    def diff(name, got, want):
+        diffs[name] = {"max_abs": float((got - want).abs().max()), "scale": float(want.abs().max())}
+
+    def base(c):
+        return [tvsnet_base(model, feats[:, 0], feats[:, v], cams[:, 0], cams[:, v], c,
+                            start, interval) for v in pairs]
+
+    for _ in range(2):
+        feats = run("fem", lambda: extract_features(model, images, cfg))
+        shallow = run("fem_shallow", lambda: extract_features(model, images, cfg, shallow=True))
+        outs = run("stage1_per_pair", lambda: base(cfg))
+        outs_b = run("stage1_pair_batch", lambda: base(batched_cfg))
+        for field in ("prob_volume", "filtered_cost"):
+            diff("stage1_" + field, torch.stack([getattr(o, field) for o in outs_b]),
+                 torch.stack([getattr(o, field) for o in outs]))
+        del outs_b
+        costs = torch.stack([o.filtered_cost for o in outs])
+        views = torch.stack([o.depth_view for o in outs])
+        del outs
+        cost_agg = run("aam1", lambda: aam_aggregate_stacked(model, costs, stage=1))
+        del costs
+        prob_agg = aam_output_conv(model, cost_agg, stage=1)
+        depth_agg = prob2depth(prob_agg, cfg.max_d, start, interval)
+        loop = run("stage3_per_pair", lambda: [
+            refinement(model, depth_agg, views[v - 1], cams[:, 0], cams[:, v], shallow[:, 0],
+                       shallow[:, v], prob_agg, cfg, start, interval) for v in pairs])
+        batched = run("stage3_pair_batch", lambda: refine_pairs_batched(
+            model, depth_agg, views, prob_agg, cams, shallow, cfg, start, interval))
+        for i, field in enumerate(("cost_residual", "prob_residual")):
+            diff("stage3_" + field, batched[i], torch.stack([one[i] for one in loop]))
+        refined = cost_agg[None] + batched[0]
+        del loop, batched
+        cost_agg2 = run("aam2", lambda: aam_aggregate_stacked(model, refined, stage=2))
+        del refined
+        prob_agg2 = aam_output_conv(model, cost_agg2, stage=2)
+        run("upsampled_softargmin", lambda: prob2depth_upsample(prob_agg2, cfg.max_d, start, interval))
+        del cost_agg, cost_agg2, prob_agg, prob_agg2, feats, shallow
+    return stages, diffs
+
+
+def phase_pair_batch(model, images, cams, cfg):
+    """pair_batch=True against False: depths (deterministic cuDNN; see BATCH_MEAN_DIFF),
+    launches per shape, seconds in turns (False, True, True, False) with both kinds of
+    cuDNN algorithm, and the stage-by-stage breakdown with stages 1 and 3 batched against
+    per pair on the same inputs."""
+    cfgs = {False: cfg, True: cfg.replace(pair_batch=True)}
+    expected = {False: MAIN_SHAPES, True: PAIR_BATCH_SHAPES}
+    depths, record = {}, {}
+    for deterministic in (True, False):
+        torch.backends.cudnn.deterministic = deterministic
+        for pb in (False, True):
+            multi_view_forward(model, images, cams, cfgs[pb])      # warm
+        seconds, peak = {False: [], True: []}, {False: 0, True: 0}
+        for pb in (False, True, True, False):
+            out, sec, nbytes, by_shape = timed_forward(model, images, cams, cfgs[pb])
+            if by_shape != expected[pb]:
+                raise AssertionError(f"pair_batch={pb}: launches {by_shape}, expected {expected[pb]}")
+            seconds[pb].append(sec)
+            peak[pb] = max(peak[pb], nbytes)
+            if deterministic:
+                depths[pb] = {k: out[k] for k in DEPTH_KEYS}
+            del out
+        record["deterministic" if deterministic else "default"] = {
+            "seconds_sequential": seconds[False], "seconds_pair_batch": seconds[True],
+            "peak_bytes_sequential": peak[False], "peak_bytes_pair_batch": peak[True]}
+    before = depth_differences(depths[True], depths[False], ("depth_views", "depth_agg_initial"))
+    final = depth_differences(depths[True], depths[False], ("depth", "depth_up"))
+    torch.backends.cudnn.deterministic = True
+    stages, same_inputs = stage_breakdown(model, images, cams, cfg)
+    torch.backends.cudnn.deterministic = False
+    stages_ok = all(v["max_abs"] <= STAGE_REL_DIFF * v["scale"] for v in same_inputs.values())
+    ok = within_kernel_bounds(before) and within_batch_bounds(final) and stages_ok
+    emit(phase="pair_batch", launches_pair_batch=shape_counts(PAIR_BATCH_SHAPES),
+         launches_sequential=shape_counts(MAIN_SHAPES), before_refinement=before,
+         diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
+         batched_vs_per_pair_same_inputs=same_inputs, stage_rel_diff=STAGE_REL_DIFF,
+         stages_deterministic=stages, final_depths=final,
+         batch_mean_diff=BATCH_MEAN_DIFF, batch_diff_at=BATCH_DIFF_AT,
+         batch_max_share=BATCH_MAX_SHARE, peak_bytes_reckoned=PAIR_BATCH_PEAK_RECKONED,
+         **record, ok=ok)
+    if not ok:
+        raise AssertionError("pair_batch=True and False disagree; see the line above")
+
+
+def serving_request(seed: int, cfg: PipelineConfig, size=None):
+    """uint8 frames and request cams (full-resolution intrinsics, metric depth row) whose
+    preparation gives synthetic_scene(seed)'s cost-volume cams and sweep back; `size`
+    crops the frames to (h, w)."""
+    images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
+                                   D=cfg.max_d, seed=seed)
+    frames = [np.uint8(im * 255.0) for im in images[0]]
+    if size is not None:
+        frames = [f[:size[0], :size[1]] for f in frames]
+    request_cams = []
+    for cam in cams[0]:
+        cam = scale_camera_np(cam, 1.0 / cfg.sample_scale)
+        start, interval = cam[1, 3, 0], cam[1, 3, 1]
+        cam[1, 3] = (1.0 / (start + interval * cfg.max_d), 0.0, cfg.max_d, 1.0 / start)
+        request_cams.append(cam)
+    return frames, request_cams
+
+
+def confidence_agreement(got, ref, depth_index, margin=1e-3):
+    """Max confidence difference where the depth index is at least `margin` away from an
+    integer (probability_map is discontinuous at integer bin indices)."""
+    away = np.abs(depth_index - np.round(depth_index)) > margin
+    return float(np.abs(got - ref)[away].max()), float(away.mean())
+
+
+def phase_serving(cfg):
+    est = DepthEstimator(cfg, params_path=SPHERES)
+    warmup_s = est.warmup()
+    frames, cams = serving_request(0, cfg)
+    H, W, h, w = cfg.max_h, cfg.max_w, cfg.max_h // 4, cfg.max_w // 4
+
+    # one request, against the bare forward on the same prepared inputs
+    torch.backends.cudnn.deterministic = True
+    S.reset_launch_counts()
+    out = est.predict(frames, cams)
+    by_shape = dict(S.softargmin_cuda.shape_launches)
+    shapes = {"depth": (h, w), "depth_up": (H, W), "confidence": (h, w), "confidence_up": (H, W)}
+    bad = [k for k, s in shapes.items() if out[k].shape != s or out[k].dtype != np.float32]
+    nonfinite = [k for k in shapes if not np.isfinite(out[k]).all()]
+    batch = prepare_mvs_sample(frames, cams, cfg.view_num, max_d=cfg.max_d, max_h=H, max_w=W,
+                               sample_scale=cfg.sample_scale, inverse_depth=cfg.inverse_depth,
+                               center=False)
+    x = center_images(torch.from_numpy(batch["images"]).cuda())
+    ref = multi_view_forward(est.model, x, batch["cams"], cfg, out_prob_map=True)
+    start, interval = float(batch["cams"][0, 0, 1, 3, 0]), float(batch["cams"][0, 0, 1, 3, 1])
+    vs_forward = {}
+    for key in ("depth", "depth_up"):
+        want = sweep_to_depth(ref[key], cfg.inverse_depth)[0, ..., 0].cpu().numpy()
+        vs_forward[key] = float(np.abs(out[key] - want).max())
+        sweep_index = (ref[key][0, ..., 0].cpu().numpy() - start) / interval
+        conf_key = "confidence" + key[len("depth"):]
+        vs_forward[conf_key], vs_forward[conf_key + "_share_compared"] = confidence_agreement(
+            out[conf_key], ref[conf_key][0, ..., 0].cpu().numpy(), sweep_index)
+    del ref, x
+    forward_ok = (max(vs_forward["depth"], vs_forward["depth_up"]) <= SERVING_MAX_DIFF
+                  and max(vs_forward["confidence"], vs_forward["confidence_up"]) <= SERVING_MAX_DIFF)
+
+    # predict_many of 2 requests against 2 predict calls (deterministic cuDNN)
+    requests = [(frames, cams), serving_request(1, cfg)]
+    many = est.predict_many(requests)
+    singles = [out, est.predict(*requests[1])]
+    many_agree = [depth_differences(m, s, ("depth", "depth_up")) for m, s in zip(many, singles)]
+    torch.backends.cudnn.deterministic = False
+
+    # a second bucket serves a smaller request: routed to it, padded, cropped back
+    est.add_bucket(max_h=256, max_w=320)
+    small = est.predict(*serving_request(2, cfg, size=(250, 300)))
+    small_shapes = {k: list(small[k].shape) for k in shapes}
+    small_ok = (small["bucket"] == (256, 320) and out["bucket"] == (H, W)
+                and small_shapes == {"depth": [62, 75], "depth_up": [250, 300],
+                                     "confidence": [62, 75], "confidence_up": [250, 300]}
+                and all(np.isfinite(small[k]).all() for k in shapes))
+
+    # a preprocessed request must be of a bucket's exact size
+    try:
+        est.predict([f[:128, :160].astype(np.float32) for f in frames], cams, preprocessed=True)
+        raised = False
+    except ValueError:
+        raised = True
+
+    # steady requests on the flagship bucket, cuDNN's default algorithms, in turns with the
+    # bare forward (out_prob_map=True) on the same prepared inputs already on the card
+    x = center_images(torch.from_numpy(batch["images"]).cuda())
+    device_cams = torch.from_numpy(batch["cams"]).cuda()
+    est.predict(frames, cams)
+    multi_view_forward(est.model, x, device_cams, cfg, out_prob_map=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtimes, walls, forwards = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        runtimes.append(est.predict(frames, cams)["runtime_s"])
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        multi_view_forward(est.model, x, device_cams, cfg, out_prob_map=True)
+        torch.cuda.synchronize()
+        forwards.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    host_ms = [(wall - run) * 1e3 for wall, run in zip(walls, runtimes)]
+
+    ok = (not bad and not nonfinite and by_shape == PROB_MAP_SHAPES and forward_ok
+          and all(map(within_batch_bounds, many_agree)) and small_ok and raised)
+    emit(phase="serving", warmup_seconds=warmup_s, launches_by_shape=shape_counts(by_shape),
+         expected_launches=shape_counts(PROB_MAP_SHAPES), bad_shapes=bad, nonfinite=nonfinite,
+         predict_vs_forward_max_abs=vs_forward, max_diff_vs_forward=SERVING_MAX_DIFF,
+         predict_many_vs_predict=many_agree, diff_at=DIFF_AT,
+         batch_mean_diff=BATCH_MEAN_DIFF, batch_diff_at=BATCH_DIFF_AT,
+         batch_max_share=BATCH_MAX_SHARE, second_bucket={"bucket": list(small["bucket"]), "shapes": small_shapes},
+         off_bucket_preprocessed_raises=raised, runtime_s_each=runtimes,
+         runtime_s_median=float(np.median(runtimes)), bare_forward_s_each=forwards,
+         bare_forward_s_median=float(np.median(forwards)),
+         host_ms_outside_runtime_median=float(np.median(host_ms)),
+         peak_memory_bytes=peak, depth_mean=float(out["depth"].mean()), ok=ok)
+    if not ok:
+        raise AssertionError("serving phase failed; see the line above")
+
+
+def phase_example(cfg):
+    """The example CLI's run_example on a rendered example/0 directory in a temp dir."""
+    with tempfile.TemporaryDirectory() as root:
+        scene = render_multiplane_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
+                                        D=cfg.max_d, seed=21, num_spheres=3)
+        write_example_dir(os.path.join(root, "0"), scene)
+        out_dir = os.path.join(root, "out")
+        result = run_example(root, 0, cfg.view_num, params_path=SPHERES, savepath=out_dir,
+                             max_d=cfg.max_d)
+        files = sorted(os.listdir(out_dir))
+        pred = np.load(os.path.join(out_dir, "pred.npy"))
+        with open(os.path.join(out_dir, "error.json")) as f:
+            errors = json.load(f)
+    finite = bool(np.isfinite(pred).all()) and all(math.isfinite(v) for v in errors.values())
+    ok = (files == ["error.json", "error.xlsx", "pred.jpg", "pred.npy"] and finite
+          and pred.shape == (cfg.max_h, cfg.max_w) and errors == result["errors"])
+    emit(phase="example", codec="cv2", files=files, pred_shape=list(pred.shape),
+         first_call_s=result["first_call_s"], second_call_s=result["runtime_s"],
+         errors=errors, ok=ok)
+    if not ok:
+        raise AssertionError("example phase failed; see the line above")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
@@ -409,6 +748,11 @@ def main() -> int:
     launches = phase_forward(model, images, cams, cfg)
     totals, bound_by = phase_timing(model, images, cams, cfg, kind)
     phase_profile(model, images, cams, cfg)
+    phase_pair_batch(model, images, cams, cfg)
+    del model
+    torch.cuda.empty_cache()
+    phase_serving(cfg)
+    phase_example(cfg)
 
     print(smi, flush=True)
     emit(kernels=[{

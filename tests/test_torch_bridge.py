@@ -22,7 +22,9 @@ from atvsnet_tpu.models.tvsnet import init_params
 from atvsnet_torch import resolve_device
 from atvsnet_torch.config import PipelineConfig
 from atvsnet_torch.data import synthetic as tsyn
-from atvsnet_torch.params import export_jax_params, flatten, load_model
+from atvsnet_tpu.utils.ckpt import load_params as jax_load_params
+from atvsnet_tpu.utils.ckpt import save_params as jax_save_params
+from atvsnet_torch.params import export_jax_params, flatten, init_model, load_model, save_params
 
 torch.set_num_threads(2)
 
@@ -48,6 +50,10 @@ def test_no_jax_in_the_port():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'atvsnet_tpu'))\n"
         "assert not bad, bad\n"
+        "need = ['serving', 'cli.example', 'cli.eval_errors', 'data.preprocess', 'data.image_io',\n"
+        "        'data.cams', 'data.pfm', 'data.mvs_list', 'eval.errors', 'utils.xlsx', 'utils.log']\n"
+        "missing = [m for m in need if 'atvsnet_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('atvsnet_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -104,6 +110,33 @@ def test_loads_trained_spheres_params():
     with pytest.raises(KeyError):
         load_model({"fem/conv0_0/w": np.zeros((3, 3, 3, 32), np.float32)}, PipelineConfig(),
                    device="cpu")
+
+
+def test_save_params_roundtrip_through_jax(tmp_path):
+    """save_params writes the JAX package's flat .npz: its load_params reads the tree back,
+    and what its save_params writes from that tree loads into an equal model."""
+    cfg = PipelineConfig(view_num=3, max_d=8, max_h=32, max_w=32)
+    model = init_model(cfg, seed=5, device="cpu")
+    assert not any(p.requires_grad for p in model.parameters()) and not model.training
+    # another seed gives other weights, the same seed the same ones
+    other = export_jax_params(init_model(cfg, seed=6, device="cpu"))
+    same = export_jax_params(init_model(cfg, seed=5, device="cpu"))
+    ours = export_jax_params(model)
+    assert any(not np.array_equal(other[k], ours[k]) for k in ours)
+    assert all(np.array_equal(same[k], ours[k]) for k in ours)
+
+    save_params(str(tmp_path / "port"), model)                  # ".npz" is appended
+    tree = jax_load_params(str(tmp_path / "port.npz"))
+    assert set(tree) == {"fem", "fem_shallow", "crm", "refine", "aam1_att", "aam1_out",
+                         "aam2_att", "aam2_out"}
+    flat = flatten(jax.tree_util.tree_map(np.asarray, tree))
+    assert flat.keys() == ours.keys()
+    for k in ours:
+        np.testing.assert_array_equal(flat[k], ours[k], err_msg=k)
+    jax_save_params(str(tmp_path / "jax.npz"), tree)
+    back = export_jax_params(load_model(str(tmp_path / "jax.npz"), cfg, device="cpu"))
+    for k in ours:
+        np.testing.assert_array_equal(back[k], ours[k], err_msg=k)
 
 
 def test_synthetic_copy_matches_original():

@@ -1,8 +1,9 @@
-"""CUDA-only tests of the port: the hand-written soft-argmin kernel on the card.
+"""CUDA-only tests of the port: the hand-written soft-argmin kernel on the card, and the
+forward, pair_batch and DepthEstimator paths that launch it.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
-`python -m pytest tests/test_torch_cuda.py -q`. chip_smoke.py repeats these checks at
+`python -m pytest --noconftest tests/test_torch_cuda.py -q`. chip_smoke.py repeats these checks at
 the main path's full shapes.
 """
 
@@ -119,8 +120,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 def test_forward_launches_the_kernel_and_matches_cpu(cuda):
     cfg = PipelineConfig(view_num=3, max_d=8, max_h=32, max_w=32)
     images, cams = synthetic_scene(view_num=3, H=32, W=32, D=8, seed=7)
-    S.softargmin_cuda.launches = 0
-    S.softargmin_cuda.path_launches = dict.fromkeys(S.PATHS, 0)
+    S.reset_launch_counts()
     gpu = multi_view_forward(init_model(cfg, device=cuda), images, cams, cfg)
     # 2 per pair x 2 pairs + AAM1 + native final depth + one 32-row upsample tile, all with
     # 16-byte-aligned planes (8x8 and 8x32 fp32)
@@ -129,3 +129,51 @@ def test_forward_launches_the_kernel_and_matches_cpu(cuda):
     cpu = multi_view_forward(init_model(cfg, device="cpu"), images, cams, cfg)
     np.testing.assert_allclose(gpu["depth"].cpu().numpy(), cpu["depth"].numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_pair_batch_on_the_card(cuda):
+    """pair_batch=True: one (2, D, h, w) launch per pair in stage 1 instead of two, and the
+    sequential path's depths (deterministic cuDNN; atol 1e-4 in sweep units of order 1)."""
+    cfg = PipelineConfig(view_num=3, max_d=8, max_h=32, max_w=32)
+    images, cams = synthetic_scene(view_num=3, H=32, W=32, D=8, seed=7)
+    model = init_model(cfg, device=cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        sequential = multi_view_forward(model, images, cams, cfg)
+        S.reset_launch_counts()
+        batched = multi_view_forward(model, images, cams, cfg.replace(pair_batch=True))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert S.softargmin_cuda.shape_launches == {(2, 8, 8, 8): 2, (1, 8, 8, 8): 2, (1, 8, 32, 32): 1}
+    for key in ("depth", "depth_up", "depth_agg_initial", "depth_views"):
+        torch.testing.assert_close(batched[key], sequential[key], rtol=1e-4, atol=1e-4)
+
+
+def test_depth_estimator_predict_on_the_card(cuda):
+    """predict on uint8 frames: 2 pairs x 2 kernel launches (the confidence path is plain
+    PyTorch), un-padded shapes, and the CPU estimator's depths (atol 1e-3 on metric depth
+    in [1, 4]: cuDNN against oneDNN through a whole forward)."""
+    from atvsnet_torch.serving import DepthEstimator
+
+    cfg = PipelineConfig(view_num=3, max_d=8, max_h=32, max_w=32)
+    rng = np.random.RandomState(3)
+    images = [rng.randint(0, 255, size=(24, 28, 3)).astype(np.uint8) for _ in range(3)]
+    cams = []
+    for v in range(3):
+        cam = np.zeros((2, 4, 4), np.float32)
+        cam[0] = np.eye(4)
+        cam[0, :2, 3] = (0.02 * v, 0.011 * v)
+        cam[1, :3, :3] = [[28, 0, 14], [0, 28, 12], [0, 0, 1]]
+        cam[1, 3] = (1.0, 3.0 / 8, 8, 4.0)
+        cams.append(cam)
+    est = DepthEstimator(cfg, seed=0)
+    assert est.device.type == "cuda"
+    S.reset_launch_counts()
+    out = est.predict(images, cams)
+    assert S.softargmin_cuda.shape_launches == {(1, 8, 8, 8): 4}
+    assert out["depth"].shape == (6, 7) and out["depth_up"].shape == (24, 28)
+    assert out["confidence"].shape == (6, 7) and out["runtime_s"] > 0
+    ref = DepthEstimator(cfg, seed=0, device="cpu").predict(images, cams)
+    for key in ("depth", "depth_up"):
+        assert np.isfinite(out[key]).all()
+        np.testing.assert_allclose(out[key], ref[key], rtol=1e-3, atol=1e-3)
