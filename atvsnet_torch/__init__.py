@@ -9,12 +9,28 @@ Entry points:
   cli.example                     python -m atvsnet_torch.cli.example: an example/{i}
                                   directory in, pred.npy, pred.jpg and the error report out
   cli.eval_errors                 the 14 depth-error metrics of two .npy/.pfm maps
+  cli.eval_pointcloud             run_eval_pc / python -m atvsnet_torch.cli.eval_pointcloud:
+                                  ETH3D-format scenes in; per reference image a depth and a
+                                  confidence .pfm, the reference jpg, its cam and a png out
+  fusion.fuse.fuse_scene, cli.depth_fusion
+                                  that output folder in, final3d_model.ply out: confidence
+                                  filter, multi-view consistency check, one point cloud
+  cli.reproduce_pc                both in a row, for a list of scenes
+  fusion.consistency.fuse_depth_maps
+                                  depth maps, images and cams (or raw P matrices) in,
+                                  points and colours (and normals) out; dense or sparse
   models.atvsnet.multi_view_forward, models.tvsnet.two_view_forward
                                   the bare forwards on prepared arrays
   params.load_model / init_model / save_params
                                   weights from and to the JAX package's .npz
   data.preprocess, data.cams, data.pfm, data.mvs_list, eval.errors
                                   the host-side readers, preparation policy and metrics
+  data.colmap, data.mvs_syn, data.gipuma_io, fusion.ply, fusion.dmb
+                                  COLMAP and MVS-Synth readers, gipuma-format files, PLY
+  geometry.visual_hull.get_visual_hull
+                                  the free-space hull of a stack of depth maps
+  native                          the C++/OpenMP host library (compaction, back-projection,
+                                  PLY writer), built with g++ into build/atvsnet_torch/
 
 Those that run the model take a `device`. Left out, it is "cuda", and a machine without
 CUDA raises instead of running on the CPU; tests pass device="cpu".

@@ -164,14 +164,12 @@ def find_gt_depth_path(ref_image_path: str) -> str | None:
 
 
 def read_gt_depth(path: str) -> np.ndarray:
-    """Read a GT depth map from a .pfm file. The .exr reader belongs to data/mvs_syn,
-    which the port does not have yet: an .exr path raises."""
+    """Read a GT depth map (.exr or .pfm) as float32 (H, W)."""
     if path.endswith(".pfm"):
         return np.asarray(load_pfm(path), np.float32)
-    raise NotImplementedError(
-        f"cannot read {path}: the EXR depth reader (data/mvs_syn) is not ported yet; "
-        "convert the map to .pfm"
-    )
+    from atvsnet_torch.data.mvs_syn import _read_exr_depth
+
+    return _read_exr_depth(path)
 
 
 def sweep_range_from_gt(

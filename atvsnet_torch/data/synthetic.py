@@ -334,3 +334,42 @@ def write_example_dir(data_root: str, scene: dict) -> None:
         np.save(os.path.join(data_root, f"{v}_cam.npy"), cam)
     gt = scene["depth_gt_metric"]
     np.save(os.path.join(data_root, "0_gt.npy"), gt.repeat(4, axis=0).repeat(4, axis=1))
+
+
+def write_eth3d_scene(scene_dir: str, n_images: int, H: int, W: int, seed: int,
+                      depth_min: float = 1.0, depth_max: float = 2.0, num_d: int = 128,
+                      num_spheres: int = 0) -> None:
+    """Fabricate a photo-consistent ETH3D-format scene: every image renders the same world
+    (render_multiplane_views), so trained weights give depth maps that agree across
+    reference views and the fusion emits a real point cloud. The port's copy of
+    tools/make_planes_eth3d.make_scene, which writes the same bytes.
+
+    Layout, as cli.eval_pointcloud reads it (reference eval_pointcloud.py:61-93):
+    images/%08d.jpg (JPEG quality 98), cams/%08d_cam.txt with FULL-resolution intrinsics
+    and a METRIC depth range (the eval script converts it to the inverse sweep itself),
+    pair.txt with nearest-neighbor view lists, and gt_depths/%08d.pfm (metric).
+    """
+    from atvsnet_torch.data.cams import write_cam
+    from atvsnet_torch.data.pfm import save_pfm
+
+    r = render_multiplane_views(
+        n_images, H, W, seed=seed, depth_min=depth_min, depth_max=depth_max,
+        spacing=0.05, rot_step=0.02, num_spheres=num_spheres,
+    )
+    for sub in ("images", "cams", "gt_depths"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    interval = (depth_max - depth_min) / num_d
+    entries = []
+    for v in range(n_images):
+        img = (r["images"][v] * 255.0).astype(np.uint8)
+        image_io.imwrite(os.path.join(scene_dir, "images", f"{v:08d}.jpg"),
+                         np.ascontiguousarray(img[..., ::-1]), jpeg_quality=98)  # RGB -> BGR
+        cam = make_cam(r["K_full"], r["Rs"][v], r["ts"][v], depth_min, interval, num_d)
+        write_cam(os.path.join(scene_dir, "cams", f"{v:08d}_cam.txt"), cam)
+        save_pfm(os.path.join(scene_dir, "gt_depths", f"{v:08d}.pfm"), r["depths"][v])
+        others = sorted((o for o in range(n_images) if o != v), key=lambda o: abs(o - v))
+        entries.append(
+            f"{v}\n{len(others)} " + " ".join(f"{o} 10.0" for o in others) + "\n"
+        )
+    with open(os.path.join(scene_dir, "pair.txt"), "w") as f:
+        f.write(f"{n_images}\n" + "".join(entries))

@@ -41,9 +41,46 @@ from atvsnet_torch.data.preprocess import prepare_mvs_sample
 from atvsnet_torch.models.atvsnet import center_images, multi_view_forward, sweep_to_depth
 from atvsnet_torch.models.tvsnet import two_view_forward
 from atvsnet_torch.params import init_model, load_model
+from atvsnet_torch.utils.transfer import finish_download, start_download
 
 # a bucket may override anything but the widths the shared model was built with
 _WIDTH_FIELDS = ("fem_base_filter", "crm_base_filter", "shallow_base_filter", "refine_base_filter")
+
+
+@torch.no_grad()
+def packed_forward(model, c: PipelineConfig, images: np.ndarray, cams: np.ndarray, device,
+                   centered: bool, maps_of, **forward_kw):
+    """Upload, normalize on the device (unless `centered`), forward, and start the download
+    of ONE flat fp32 row per sample that holds the maps `maps_of(out)` picks, one after the
+    other. DepthEstimator and cli.eval_pointcloud both run their forwards through here.
+
+    images (B, N, H, W, 3) of the bucket's size, uint8 or float; cams (B, N, 2, 4, 4);
+    forward_kw goes to multi_view_forward (two_view_forward takes none). Returns
+    utils.transfer.start_download's (host tensor (B, n), event): the caller waits with
+    finish_download, at once or after it has queued more work.
+    """
+    x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+    x = x.to(torch.float32) if centered else center_images(x)
+    if c.view_num == 2:
+        out = two_view_forward(model, x, cams, c)
+    else:
+        out = multi_view_forward(model, x, cams, c, **forward_kw)
+    parts = maps_of(out)
+    b = parts[0].shape[0]
+    return start_download(torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1))
+
+
+def unpack_rows(packed: np.ndarray, names, shapes) -> list[dict]:
+    """Host side of packed_forward: slice the (B, n) rows back into named (rows, cols) maps."""
+    results = []
+    for row in packed:
+        off, maps = 0, {}
+        for name, shape in zip(names, shapes):
+            size = shape[0] * shape[1]
+            maps[name] = row[off:off + size].reshape(shape)
+            off += size
+        results.append(maps)
+    return results
 
 
 class DepthEstimator:
@@ -125,40 +162,18 @@ class DepthEstimator:
         Returns the per-sample maps (numpy views into the downloaded row) and the seconds
         from before the upload until the download has finished.
         """
-        on_gpu = self.device.type == "cuda"
         with_conf = self.with_confidence and c.view_num > 2
-        t0 = time.perf_counter()
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        x = x.to(torch.float32) if centered else center_images(x)
-        if c.view_num == 2:
-            out = two_view_forward(self.model, x, cams, c)
-        else:
-            out = multi_view_forward(self.model, x, cams, c, out_prob_map=with_conf)
-        parts = [sweep_to_depth(out["depth"], c.inverse_depth),
-                 sweep_to_depth(out["depth_up"], c.inverse_depth)]
-        if with_conf:
-            parts += [out["confidence"], out["confidence_up"]]
-        b = parts[0].shape[0]
-        packed = torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1)
-        host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=on_gpu)
-        host.copy_(packed, non_blocking=on_gpu)
-        if on_gpu:
-            torch.cuda.synchronize(self.device)
-        runtime = time.perf_counter() - t0
-        return self._unpack(c, host.numpy()), runtime
 
-    def _unpack(self, c: PipelineConfig, packed: np.ndarray) -> list[dict]:
-        """Host side of _forward's packing: slice the (B, n) rows back into maps."""
-        names, shapes = self._map_layout(c)
-        results = []
-        for row in packed:
-            off, maps = 0, {}
-            for name, shape in zip(names, shapes):
-                size = shape[0] * shape[1]
-                maps[name] = row[off:off + size].reshape(shape)
-                off += size
-            results.append(maps)
-        return results
+        def maps_of(out):
+            parts = [sweep_to_depth(out["depth"], c.inverse_depth),
+                     sweep_to_depth(out["depth_up"], c.inverse_depth)]
+            return parts + ([out["confidence"], out["confidence_up"]] if with_conf else [])
+
+        t0 = time.perf_counter()
+        packed = finish_download(*packed_forward(
+            self.model, c, images, cams, self.device, centered, maps_of, out_prob_map=with_conf))
+        runtime = time.perf_counter() - t0
+        return unpack_rows(packed, *self._map_layout(c)), runtime
 
     @staticmethod
     def _result(c: PipelineConfig, maps: dict, valid_hw, runtime: float) -> dict:

@@ -37,14 +37,30 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 preprocessed request that must raise
  10. example    cli.example.run_example on an example/0 directory written into a temp dir
                 (5 rendered views, 480x896, D=128): the files, a finite error report
+ 11. native     g++ builds native/atvsnet_native.cpp into build/atvsnet_torch/; the library
+                must load, and each function is held against its numpy version
+ 12. fusion     fusion.consistency.fuse_depth_maps on a rendered 12-view scene with known
+                depths (120x224, ~20% of pixels zeroed; then 480x896): dense equals sparse
+                exactly, the card against device="cpu" within the flip bound, seconds per
+                scene, points, the split upload / device / download / host compaction, and
+                the 480x896 scene once more with 50% and 10% of the pixels left
+ 13. eval       cli.eval_pointcloud.run_eval_pc on a fabricated ETH3D scene (12 images,
+                512x640, 3 spheres) at 8 views, D=128, full width, fp32, trained weights:
+                soft-argmin launches per shape and path, every depth map scored against the
+                scene's ground truth, maps/s, the blocked-time split, peak memory; batch=2
+                against batch=1; then fusion.fuse.fuse_scene at its defaults: point count
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu.
+nothing of JAX or of atvsnet_tpu. `--only native fusion eval` runs just those phases after
+device and build: a short run while working on one of them, which exits 1 and prints no
+kernels line and no ok line.
 """
 
 from __future__ import annotations
 
+import argparse
+import glob
 import json
 import math
 import os
@@ -56,10 +72,20 @@ import time
 import numpy as np
 import torch
 
+from atvsnet_torch import native
+from atvsnet_torch.cli.eval_pointcloud import run_eval_pc
 from atvsnet_torch.cli.example import run_example
 from atvsnet_torch.config import PipelineConfig
+from atvsnet_torch.data import image_io
+from atvsnet_torch.data.pfm import load_pfm
 from atvsnet_torch.data.preprocess import prepare_mvs_sample
-from atvsnet_torch.data.synthetic import render_multiplane_scene, synthetic_scene, write_example_dir
+from atvsnet_torch.data.synthetic import (make_cam, render_multiplane_scene,
+                                          render_multiplane_views, synthetic_scene,
+                                          write_eth3d_scene, write_example_dir)
+from atvsnet_torch.eval.errors import calc_error
+from atvsnet_torch.fusion import consistency as fusion
+from atvsnet_torch.fusion.fuse import fuse_scene, load_scene, probability_filter
+from atvsnet_torch.fusion.ply import read_ply, write_ply
 from atvsnet_torch.geometry.cameras import scale_camera_np
 from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
                                           refine_pairs_batched, sweep_to_depth)
@@ -129,10 +155,29 @@ SMALL_MAX_DIFF = 1e-4
 # cuDNN's deterministic algorithms: the same kernels on the same values, so metric depths
 # and confidences (away from integer bin indices) are held to 1e-5
 SERVING_MAX_DIFF = 1e-5
+# The eval path: run_eval_pc at 8 views, 512x640, D=128, with the confidence map and without
+# the upsampled outputs. Stage 1 launches the kernel twice per pair (7 pairs); AAM1's and
+# the final depth need the whole softmax volume for the confidence and go through the plain
+# formula. 14 launches per forward at (1,128,128,160), 12 reference images.
+EVAL_IMAGES, EVAL_VIEWS, EVAL_H, EVAL_W = 12, 8, 512, 640
+EVAL_SHAPES = {(1, 128, EVAL_H // 4, EVAL_W // 4): 2 * (EVAL_VIEWS - 1) * EVAL_IMAGES}
+EVAL_BATCH2_SHAPES = {(2, 128, EVAL_H // 4, EVAL_W // 4): 2 * (EVAL_VIEWS - 1) * EVAL_IMAGES // 2}
+# Bounds on the eval phase's accuracy, stated before its first run on a card: a sanity range
+# around the committed record of this scene (MAE 1.74 mm, inlier@3% 96.1%, 200,741 points;
+# taken in bf16 on another device at an unrecorded view count), not a target.
+EVAL_MAX_MAE, EVAL_MIN_INLIER3, EVAL_MIN_POINTS = 0.01, 0.90, 100_000
+# The card against device="cpu" in the consistency check: `rel < disp_thresh` compares fp32
+# values whose rounding differs between the two, so a pixel within an ulp of the threshold
+# may emit on one and not the other. Points only one cloud has: at most 0.1% of the larger
+# cloud; matched points are bit-equal (both come from the host's float64 back-projection
+# of the same pixel) and their colours agree to +-1.
+FUSION_MAX_UNMATCHED, FUSION_COLOUR_TOL = 1e-3, 1
+FUSION_FLOP_PER_CHECK = 60  # per (reference pixel, view): project, 4-corner blend of 4 channels, test
 
 
 def emit(**record):
-    print(json.dumps(record), flush=True)
+    # numpy scalars (a bool from ndarray.all(), a float32 mean) go out as Python's
+    print(json.dumps(record, default=lambda o: o.item()), flush=True)
 
 
 def shape_counts(counts: dict) -> dict:
@@ -251,6 +296,8 @@ def kernel_cases():
              ("main native bf16", (1, 128, 120, 224), bf16, "aligned", None),
              ("main tile", (1, 128, 120, 896), f32, "aligned", None),
              ("main pair_batch", (2, 128, 120, 224), f32, "aligned", None),
+             ("eval native", (1, 128, 128, 160), f32, "aligned", None),
+             ("eval native batch 2", (2, 128, 128, 160), f32, "aligned", None),
              ("ragged pixel edge", (2, 16, 8, 4095), f32, "aligned", None),
              ("ragged pixel edge, odd h*w", (2, 16, 7, 4095), f32, "scalar", None),
              ("wide", (1, 128, 8, 4096), f32, "aligned", None),
@@ -388,10 +435,11 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = "bytes"
     f32, bf16 = torch.float32, torch.bfloat16
-    # the flagship forward's two calls and the pair_batch forward's stacked one, then what
-    # no forward here runs: bf16, and the scalar path at the native shape (through a pointer that is not 16-byte aligned)
+    # the flagship forward's two calls, the pair_batch forward's stacked one and the eval
+    # path's call (8 views at 512x640), then what no forward here runs: bf16, and the scalar path at the native shape (through a pointer that is not 16-byte aligned)
     for shape, dtype, path in [((1, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 896), f32, "aligned"),
-                               ((2, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 224), bf16, "aligned"),
+                               ((2, 128, 120, 224), f32, "aligned"), ((1, 128, 128, 160), f32, "aligned"),
+                               ((1, 128, 120, 224), bf16, "aligned"),
                                ((1, 128, 120, 224), f32, "scalar"), ((1, 128, 120, 224), bf16, "scalar")]:
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
@@ -723,10 +771,367 @@ def phase_example(cfg):
         raise AssertionError("example phase failed; see the line above")
 
 
+def phase_native():
+    """Build the host library from the repository's source, require that it loaded, and
+    hold each function against its numpy version at a scene's size."""
+    t0 = time.perf_counter()
+    native.build(force=True)
+    lib = native.require_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    H, W = 480, 896
+    packed = np.zeros((H, W, 4), np.uint8)
+    packed[..., 0] = rng.rand(H, W) > 0.4
+    packed[..., 1:] = rng.randint(0, 256, (H, W, 3))
+    depth = (1.0 + rng.rand(H, W)).astype(np.float32)
+    K = np.array([[float(W), 0, W / 2], [0, float(W), H / 2], [0, 0, 1.0]])
+    P = K @ np.hstack([np.eye(3), np.array([[0.1], [-0.2], [0.3]])])
+    Minv, P4 = np.linalg.inv(P[:, :3]), P[:, 3]
+    mask = packed[..., 0].astype(bool)
+    points = rng.randn(H, W, 3).astype(np.float32)
+    colours = (rng.rand(H, W, 3) * 300 - 20).astype(np.float32)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    (bp, bp_ms), (bp_ref, bp_np_ms) = (timed(native.compact_backproject, packed, depth, Minv, P4),
+                                       timed(native.compact_backproject_numpy, packed, depth, Minv, P4))
+    (cp, cp_ms), (cp_ref, cp_np_ms) = (timed(native.compact_points, mask, points, colours),
+                                       timed(native.compact_points_numpy, mask, points, colours))
+    with tempfile.TemporaryDirectory() as tmp:
+        _, ply_ms = timed(native.write_ply, os.path.join(tmp, "a.ply"), bp[0], bp[1])
+        _, ply_np_ms = timed(native.write_ply_numpy, os.path.join(tmp, "b.ply"), bp[0], bp[1])
+        with open(os.path.join(tmp, "a.ply"), "rb") as a, open(os.path.join(tmp, "b.ply"), "rb") as b:
+            ply_equal = a.read() == b.read()
+        # OpenCV decodes EXR only where its build has the codec: a map it can write must read back
+        exr = os.path.join(tmp, "depth.exr")
+        import cv2
+        try:
+            exr_written = bool(cv2.imwrite(exr, depth[:32, :48]))
+        except cv2.error:
+            exr_written = False
+        exr_ok = (not exr_written) or np.array_equal(image_io.imread_depth(exr), depth[:32, :48])
+    # float64 products rounded to float32: the compiler may contract a*b+c, so 1 ulp
+    backproject_err = float(np.abs(bp[0] - bp_ref[0]).max())
+    ok = (lib is native.get_lib() and os.path.exists(native.LIBRARY)
+          and native.count_mask(mask) == int(mask.sum())
+          and bp[0].shape == bp_ref[0].shape and np.array_equal(bp[1], bp_ref[1])
+          and np.allclose(bp[0], bp_ref[0], rtol=2e-7, atol=1e-7)
+          and np.array_equal(cp[0], cp_ref[0]) and np.array_equal(cp[1], cp_ref[1])
+          and ply_equal and exr_ok)
+    emit(phase="native", build_seconds=build_s, library=os.path.relpath(native.LIBRARY, ROOT),
+         source=os.path.relpath(native.SOURCE, ROOT), pixels=H * W, points=int(mask.sum()),
+         compact_backproject_ms=bp_ms, compact_backproject_numpy_ms=bp_np_ms,
+         compact_backproject_max_abs_err=backproject_err,
+         compact_points_ms=cp_ms, compact_points_numpy_ms=cp_np_ms,
+         write_ply_ms=ply_ms, write_ply_numpy_ms=ply_np_ms, ply_equal=ply_equal,
+         exr_codec=exr_written, exr_roundtrip_ok=exr_ok, ok=ok)
+    if not ok:
+        raise AssertionError("native phase failed; see the line above")
+
+
+def fusion_scene(n_views, H, W, seed):
+    """Rendered views with their true depths: depths (V, H, W), uint8 images (V, H, W, 3),
+    cams (V, 2, 4, 4) with full-resolution intrinsics."""
+    r = render_multiplane_views(n_views, H, W, seed=seed, spacing=0.05, rot_step=0.02,
+                                num_spheres=3)
+    cams = np.stack([make_cam(r["K_full"], r["Rs"][v], r["ts"][v], 1.0, 1.0 / 128, 128)
+                     for v in range(n_views)])
+    return r["depths"].astype(np.float32), np.uint8(r["images"] * 255.0), cams
+
+
+def with_holes(depths, share, seed):
+    """`share` of the pixels zeroed (filtered), drawn from `seed`."""
+    holes = np.random.RandomState(seed).rand(*depths.shape) < share
+    return np.where(holes, 0.0, depths).astype(np.float32)
+
+
+def cloud_agreement(a, b):
+    """Two (points, colours) clouds of the same scene: the share of points that only one
+    has (matched by the bits of xyz: both come from the host's float64 back-projection of
+    the same pixel) and the largest colour difference among the matched."""
+    def keys(points):
+        return np.ascontiguousarray(points).view([("", points.dtype)] * 3).reshape(-1)
+    _, ia, ib = np.intersect1d(keys(a[0]), keys(b[0]), return_indices=True)
+    larger = max(len(a[0]), len(b[0]), 1)
+    unmatched = len(a[0]) + len(b[0]) - 2 * len(ia)
+    colour = np.abs(a[1][ia].astype(np.int32) - b[1][ib].astype(np.int32)).max(initial=0)
+    return unmatched / larger, int(colour)
+
+
+def fusion_bound_ms(V, H, W, ref_chunk, kind):
+    """Least time for the consistency check of one scene, every view as reference once:
+    each chunk reads the depth maps (4 B/px), the uint8 images (3 B/px) and the cameras once
+    and writes 4 B per reference pixel; V - 1 checks per reference pixel."""
+    chunks = -(-V // ref_chunk)
+    nbytes = chunks * (V * H * W * 7 + V * 112) + V * H * W * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    t_ops = V * (V - 1) * H * W * FUSION_FLOP_PER_CHECK / FP32_FLOP_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fusion_device_ms(depths, images, cams, ref_chunk, sparse):
+    """Device time of the consistency check alone for one scene (CUDA events around the
+    chunks, inputs resident, nothing downloaded; the sparse path with its lists made and
+    its rows scattered back on the device, as fuse_depth_maps runs it), and of downloading
+    its packed outputs."""
+    V, H, W = depths.shape
+    P, M_inv, centers, f = (torch.from_numpy(a).cuda() for a in fusion.camera_geometry(cams))
+    d, im = torch.from_numpy(depths).cuda(), torch.from_numpy(images).cuda()
+    counts = (depths > 0).reshape(V, -1).sum(axis=1)
+    chunks = [np.arange(c0, min(c0 + ref_chunk, V)) for c0 in range(0, V, ref_chunk)]
+    chunks = [(torch.from_numpy(i).cuda(), int(counts[i].max()), torch.from_numpy(counts[i]).cuda())
+              for i in chunks]
+
+    def check():
+        outs = []
+        for idxs, longest, n_valid in chunks:
+            pix = fusion.valid_pixel_lists(d, idxs, longest) if sparse else None
+            out = fusion.fuse_ref_chunk(idxs, pix, n_valid if sparse else None, d, im, P, M_inv,
+                                        centers, f, 0.01, 2)
+            outs.append(fusion.scatter_to_grid(out, pix, H * W) if sparse else out)
+        return outs
+
+    check()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    iters = 5
+    start.record()
+    for _ in range(iters):
+        outs = check()
+    end.record()
+    torch.cuda.synchronize()
+    check_ms = start.elapsed_time(end) / iters
+    hosts = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+    start.record()
+    for o, h in zip(outs, hosts):
+        h.copy_(o, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return check_ms, start.elapsed_time(end), sum(o.numel() for o in outs), device_kernels(check)
+
+
+def device_kernels(fn, top=8):
+    """Device time of one call of fn by kernel (torch.profiler): (ms in index/gather kernels,
+    ms in all kernels, the `top` kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in ("Buffer Flush", "Activity Buffer Request")]
+    gather = sum(getattr(e, attr) for e in kernels
+                 if any(k in e.key.lower() for k in ("gather", "index"))) / 1e3
+    ranked = sorted(kernels, key=lambda e: getattr(e, attr), reverse=True)[:top]
+    return {"gather_ms": gather, "all_kernels_ms": sum(getattr(e, attr) for e in kernels) / 1e3,
+            "launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "device_ms": getattr(e, attr) / 1e3, "calls": e.count}
+                    for e in ranked]}
+
+
+def phase_fusion(kind):
+    for H, W, with_cpu, repeats in ((120, 224, True, 5), (480, 896, False, 3)):
+        full_depths, images, cams = fusion_scene(12, H, W, seed=5)
+        depths = with_holes(full_depths, 0.2, seed=6)
+        V, ref_chunk = depths.shape[0], 4
+        clouds, seconds, splits = {}, {}, {}
+        for compact in ("never", "always", "auto"):
+            fusion.fuse_depth_maps(depths, images, cams, compact=compact)          # warm
+            times = []
+            for _ in range(repeats):
+                stats = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                clouds[compact] = fusion.fuse_depth_maps(depths, images, cams, compact=compact,
+                                                         ref_chunk=ref_chunk, timings=stats)
+                times.append(time.perf_counter() - t0)
+            seconds[compact], splits[compact] = times, stats
+        dense = clouds["never"]
+        sparse_equal = all(np.array_equal(clouds[c][0], dense[0]) and np.array_equal(clouds[c][1], dense[1])
+                           for c in ("always", "auto"))
+        record = {}
+        ok = sparse_equal and dense[0].shape[0] > 0.3 * V * H * W
+        if with_cpu:
+            t0 = time.perf_counter()
+            cpu = fusion.fuse_depth_maps(depths, images, cams, compact="never", device="cpu")
+            unmatched, colour = cloud_agreement(dense, cpu)
+            record = {"cpu_points": int(cpu[0].shape[0]), "cpu_seconds": time.perf_counter() - t0,
+                      "unmatched_share_vs_cpu": unmatched, "max_colour_diff_vs_cpu": colour,
+                      "max_unmatched": FUSION_MAX_UNMATCHED, "colour_tol": FUSION_COLOUR_TOL}
+            ok = ok and unmatched <= FUSION_MAX_UNMATCHED and colour <= FUSION_COLOUR_TOL
+        b_ms, b_by = fusion_bound_ms(V, H, W, ref_chunk, kind)
+        dense_ms, dense_dl_ms, dense_out, dense_kernels = fusion_device_ms(
+            depths, images, cams, ref_chunk, False)
+        sparse_ms, sparse_dl_ms, sparse_out, _ = fusion_device_ms(depths, images, cams, ref_chunk, True)
+        emit(phase="fusion", views=V, size=[H, W], ref_chunk=ref_chunk,
+             valid_share=float((depths > 0).mean()), points=int(dense[0].shape[0]),
+             sparse_equals_dense=sparse_equal,
+             seconds_each={k: v for k, v in seconds.items()},
+             seconds_median={k: float(np.median(v)) for k, v in seconds.items()},
+             split_of_last_run=splits, check_device_ms={"dense": dense_ms, "sparse": sparse_ms},
+             download_ms={"dense": dense_dl_ms, "sparse": sparse_dl_ms},
+             download_bytes={"dense": dense_out, "sparse": sparse_out},
+             bound_ms=b_ms, bound_by=b_by, flop_per_check_assumed=FUSION_FLOP_PER_CHECK,
+             check_over_bound=dense_ms / b_ms, dense_check_by_kernel=dense_kernels, **record, ok=ok)
+        if not ok:
+            raise AssertionError("fusion phase failed; see the line above")
+    # Where the sparse path starts to pay: the 480x896 scene again with half and with a tenth
+    # of the pixels left (random holes; a timing of the two paths, whose clouds must be equal)
+    for hole_share in (0.5, 0.9):
+        depths = with_holes(full_depths, hole_share, seed=7)
+        seconds, clouds = {}, {}
+        for compact in ("never", "always"):
+            fusion.fuse_depth_maps(depths, images, cams, compact=compact)          # warm
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                clouds[compact] = fusion.fuse_depth_maps(depths, images, cams, compact=compact)
+                times.append(time.perf_counter() - t0)
+            seconds[compact] = float(np.median(times))
+        equal = all(np.array_equal(a, b) for a, b in zip(clouds["never"], clouds["always"]))
+        emit(phase="fusion", what="occupancy", views=12, size=[H, W],
+             valid_share=float((depths > 0).mean()), points=int(clouds["never"][0].shape[0]),
+             seconds_median=seconds, sparse_equals_dense=equal,
+             check_device_ms={"dense": fusion_device_ms(depths, images, cams, 4, False)[0],
+                              "sparse": fusion_device_ms(depths, images, cams, 4, True)[0]}, ok=equal)
+        if not equal:
+            raise AssertionError("fusion phase: sparse and dense clouds differ; see the line above")
+
+
+def score_depth_maps(scene_dir, out_folder):
+    """Every written depth map against the scene's ground truth, nearest-downsampled to the
+    prediction's grid (no interpolation across the renderer's surface boundaries): the mean
+    of eval.errors.calc_error over the reference views."""
+    preds = sorted(p for p in glob.glob(os.path.join(out_folder, "*.pfm"))
+                   if not p.endswith(("_prob.pfm", "_prob_filtered.pfm")))
+    errs = []
+    for p in preds:
+        idx = int(os.path.basename(p).split(".")[0])
+        d = np.asarray(load_pfm(p), np.float32)
+        gt = np.asarray(load_pfm(os.path.join(scene_dir, "gt_depths", f"{idx:08d}.pfm")), np.float32)
+        errs.append(calc_error(d, image_io.resize_to(gt, d.shape[1], d.shape[0], "nearest"))[0])
+    return np.mean(np.stack(errs), axis=0), len(preds)
+
+
+def phase_eval():
+    """run_eval_pc and fuse_scene on a fabricated 12-image scene, through their entry points.
+    Returns the soft-argmin launches of the batch-1 run."""
+    h, w = EVAL_H // 4, EVAL_W // 4
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        scene_dir = os.path.join(root, "data", "eth3d", "spheres")
+        write_eth3d_scene(scene_dir, EVAL_IMAGES, EVAL_H, EVAL_W, seed=0, depth_min=1.0,
+                          depth_max=2.0, num_d=128, num_spheres=3)
+        render_s = time.perf_counter() - t0
+        kw = dict(view_num=EVAL_VIEWS, max_d=128, max_w=EVAL_W, max_h=EVAL_H, params_path=SPHERES)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = run_eval_pc(os.path.join(root, "data"), os.path.join(root, "out"), ["spheres"], **kw)
+        eval_s = time.perf_counter() - t0
+        launches = S.softargmin_cuda.launches
+        by_shape, by_path = dict(S.softargmin_cuda.shape_launches), dict(S.softargmin_cuda.path_launches)
+        peak = torch.cuda.max_memory_allocated()
+        out_folder = os.path.join(root, "out", "spheres", "depths_atvsnet")
+        files = sorted(os.listdir(out_folder))
+        expected = sorted(f"{v:08d}{s}" for v in range(EVAL_IMAGES)
+                          for s in (".jpg", ".pfm", ".png", ".txt", "_prob.pfm"))
+        depths = [load_pfm(os.path.join(out_folder, f"{v:08d}.pfm")) for v in range(EVAL_IMAGES)]
+        confs = [load_pfm(os.path.join(out_folder, f"{v:08d}_prob.pfm")) for v in range(EVAL_IMAGES)]
+        shapes_ok = all(d.shape == (h, w) and c.shape == (h, w) and np.isfinite(d).all()
+                        and np.isfinite(c).all() for d, c in zip(depths, confs))
+        errors, n_scored = score_depth_maps(scene_dir, out_folder)
+        mae, inlier3 = float(errors[0]), float(errors[11])
+
+        # batch=2 on the card is another result than batch=1 (see BATCH_MEAN_DIFF): held to
+        # the bounds of a batched pass, with cuDNN's default algorithms on both sides
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats2 = run_eval_pc(os.path.join(root, "data"), os.path.join(root, "out2"), ["spheres"],
+                             batch=2, **kw)
+        eval2_s = time.perf_counter() - t0
+        by_shape2 = dict(S.softargmin_cuda.shape_launches)
+        folder2 = os.path.join(root, "out2", "spheres", "depths_atvsnet")
+        batch_agree = depth_differences(
+            {"depth": np.stack([load_pfm(os.path.join(folder2, f"{v:08d}.pfm")) for v in range(EVAL_IMAGES)])},
+            {"depth": np.stack(depths)}, ("depth",))
+
+        # fusion at the defaults (tau 0.8, disparity 0.01, 2 consistent views), then its parts
+        # once more on the same tree, each on the host's clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ply = fuse_scene(os.path.join(root, "out", "spheres"))
+        torch.cuda.synchronize()
+        fuse_s = time.perf_counter() - t0
+        points, colours = read_ply(ply)
+        parts = {}
+        t0 = time.perf_counter()
+        probability_filter(out_folder, 0.8)
+        parts["probability_filter_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f_depths, f_images, f_cams, _ = load_scene(out_folder)
+        parts["load_scene_s"] = time.perf_counter() - t0
+        check = {}
+        t0 = time.perf_counter()
+        again = fusion.fuse_depth_maps(f_depths, f_images, f_cams, depth_min=0.01, depth_max=1e5,
+                                       timings=check)
+        parts["fuse_depth_maps_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_ply(os.path.join(root, "again.ply"), again[0], again[1][:, ::-1])
+        parts["write_ply_s"] = time.perf_counter() - t0
+        valid_share = float((f_depths > 0).mean())
+        same_cloud = np.array_equal(again[0], points) and np.array_equal(again[1][:, ::-1], colours)
+
+    bounds_ok = mae < EVAL_MAX_MAE and inlier3 > EVAL_MIN_INLIER3 and points.shape[0] > EVAL_MIN_POINTS
+    ok = (files == expected and shapes_ok and n_scored == EVAL_IMAGES and by_shape == EVAL_SHAPES
+          and by_path["aligned"] == launches and by_shape2 == EVAL_BATCH2_SHAPES
+          and within_batch_bounds(batch_agree) and bounds_ok and same_cloud
+          and np.isfinite(points).all())
+    steady = stats["batch_seconds"][1:]
+    emit(phase="eval", scene={"images": EVAL_IMAGES, "size": [EVAL_H, EVAL_W], "spheres": 3, "seed": 0},
+         view_num=EVAL_VIEWS, max_d=128, dtype="float32", render_seconds=render_s,
+         launches=launches, launches_by_shape=shape_counts(by_shape), launches_by_path=by_path,
+         expected_launches=shape_counts(EVAL_SHAPES), files_ok=files == expected, shapes_ok=shapes_ok,
+         run_eval_pc_seconds=eval_s, scene_seconds=stats["scenes"]["spheres"]["seconds"],
+         maps_per_s=stats["scenes"]["spheres"]["maps_per_s"], blocked=stats["blocked"],
+         first_batch_s=stats["batch_seconds"][0], steady_batch_s_median=float(np.median(steady)),
+         steady_batch_s_each=steady, peak_memory_bytes=peak,
+         mae=mae, inlier3=inlier3, inlier1=float(errors[10]), abs_relative=float(errors[7]),
+         confident_share=float(np.mean([(c >= 0.8).mean() for c in confs])),
+         bounds={"mae_below": EVAL_MAX_MAE, "inlier3_above": EVAL_MIN_INLIER3,
+                 "points_above": EVAL_MIN_POINTS}, bounds_ok=bounds_ok,
+         batch2={"run_eval_pc_seconds": eval2_s, "maps_per_s": stats2["scenes"]["spheres"]["maps_per_s"],
+                 "steady_batch_s_median": float(np.median(stats2["batch_seconds"][1:])),
+                 "launches_by_shape": shape_counts(by_shape2), "vs_batch1": batch_agree,
+                 "batch_mean_diff": BATCH_MEAN_DIFF, "batch_diff_at": BATCH_DIFF_AT,
+                 "batch_max_share": BATCH_MAX_SHARE},
+         fuse_scene_seconds=fuse_s, points=int(points.shape[0]), valid_share_after_filter=valid_share,
+         fusion_parts=parts, fuse_depth_maps_split=check, parts_give_the_same_cloud=same_cloud, ok=ok)
+    if not ok:
+        raise AssertionError("eval phase failed; see the line above")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
         return 2
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--only", nargs="+", choices=["native", "fusion", "eval"], default=None,
+                    help="after device and build, run these phases alone: a short run while "
+                         "working on one of them; it prints no kernels line and no ok line")
+    args = ap.parse_args()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     kind = card_kind(name)
@@ -738,6 +1143,11 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
          ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln])
 
+    if args.only:
+        for phase in args.only:
+            {"native": phase_native, "fusion": lambda: phase_fusion(kind), "eval": phase_eval}[phase]()
+        print(smi, flush=True)
+        return 1  # a partial run is no pass
     max_err = phase_kernel()
     phase_small()
 
@@ -753,11 +1163,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serving(cfg)
     phase_example(cfg)
+    phase_native()
+    phase_fusion(kind)
+    torch.cuda.empty_cache()
+    eval_launches = phase_eval()
 
     print(smi, flush=True)
+    # launches: the flagship forward's and the eval path's, each counted from 0 over its own
+    # run; ms, plain_ms and bound_ms are per flagship forward, as before
     emit(kernels=[{
         "name": "softargmin", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
-        "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches,
+        "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches + eval_launches,
+        "launches_by_run": {"forward": launches, "eval": eval_launches},
         "max_abs_err": max_err, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"], "bound_by": bound_by, "library_ms": None,
     }])

@@ -51,7 +51,10 @@ def test_no_jax_in_the_port():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'atvsnet_tpu'))\n"
         "assert not bad, bad\n"
         "need = ['serving', 'cli.example', 'cli.eval_errors', 'data.preprocess', 'data.image_io',\n"
-        "        'data.cams', 'data.pfm', 'data.mvs_list', 'eval.errors', 'utils.xlsx', 'utils.log']\n"
+        "        'data.cams', 'data.pfm', 'data.mvs_list', 'eval.errors', 'utils.xlsx', 'utils.log',\n"
+        "        'fusion.ply', 'fusion.dmb', 'fusion.consistency', 'fusion.fuse', 'native',\n"
+        "        'data.gipuma_io', 'data.colmap', 'data.mvs_syn', 'geometry.visual_hull',\n"
+        "        'cli.eval_pointcloud', 'cli.depth_fusion', 'cli.reproduce_pc', 'utils.transfer']\n"
         "missing = [m for m in need if 'atvsnet_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('atvsnet_torch')]))\n"

@@ -1,5 +1,5 @@
-"""CUDA-only tests of the port: the hand-written soft-argmin kernel on the card, and the
-forward, pair_batch and DepthEstimator paths that launch it.
+"""CUDA-only tests of the port: the hand-written soft-argmin kernel on the card, the
+forward, pair_batch and DepthEstimator paths that launch it, and the consistency fusion.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
@@ -177,3 +177,30 @@ def test_depth_estimator_predict_on_the_card(cuda):
     for key in ("depth", "depth_up"):
         assert np.isfinite(out[key]).all()
         np.testing.assert_allclose(out[key], ref[key], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("normals", [False, True])
+def test_consistency_fusion_on_the_card(cuda, normals):
+    """fuse_depth_maps on the card: filtered pixels in every view (their projections are
+    NaN: a sample index made from one would trip a device-side assert), dense equals sparse
+    exactly, and the card's cloud is the CPU's up to threshold flips."""
+    from atvsnet_torch.data.synthetic import make_cam, render_multiplane_views
+    from atvsnet_torch.fusion.consistency import fuse_depth_maps
+    from atvsnet_torch.fusion.dmb import fake_normals
+
+    r = render_multiplane_views(5, 60, 80, seed=3, spacing=0.05, rot_step=0.02, num_spheres=1)
+    cams = np.stack([make_cam(r["K_full"], r["Rs"][v], r["ts"][v]) for v in range(5)])
+    holes = np.random.RandomState(4).rand(*r["depths"].shape) < 0.2
+    depths = np.where(holes, 0.0, r["depths"]).astype(np.float32)
+    images = np.uint8(r["images"] * 255.0)
+    kw = {}
+    if normals:
+        kw = dict(normals=np.stack([fake_normals(d) for d in depths]), normal_thresh_deg=30.0)
+    dense = fuse_depth_maps(depths, images, cams, compact="never", **kw)
+    sparse = fuse_depth_maps(depths, images, cams, compact="always", ref_chunk=2, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(dense, sparse):
+        np.testing.assert_array_equal(a, b)
+    cpu = fuse_depth_maps(depths, images, cams, compact="never", device="cpu", **kw)
+    assert dense[0].shape[0] > 5000
+    assert abs(dense[0].shape[0] - cpu[0].shape[0]) <= 1e-3 * cpu[0].shape[0]

@@ -286,8 +286,15 @@ def test_find_and_read_gt_depth(tmp_path):
     path = tpre.find_gt_depth_path(ref)
     assert path == jpre.find_gt_depth_path(ref) and path.endswith("scan_view7.pfm")
     np.testing.assert_array_equal(tpre.read_gt_depth(path), jpre.read_gt_depth(path))
-    with pytest.raises(NotImplementedError, match="EXR"):
+    # .exr goes to data/mvs_syn._read_exr_depth: a missing or undecodable file raises IOError
+    # naming the path, never an AttributeError from a decoder's None
+    with pytest.raises(IOError, match="scan_view7.exr"):
         tpre.read_gt_depth(str(tmp_path / "depths" / "scan_view7.exr"))
+    (tmp_path / "depths" / "garbage.exr").write_bytes(b"not an exr at all")
+    with pytest.raises(IOError, match="garbage.exr"):
+        tpre.read_gt_depth(str(tmp_path / "depths" / "garbage.exr"))
+    # an .exr beside the .pfm wins, as in the original
+    assert tpre.find_gt_depth_path(ref) == jpre.find_gt_depth_path(ref)
 
 
 # ---- preprocess: the whole policy ------------------------------------------------------
