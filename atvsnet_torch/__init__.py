@@ -21,6 +21,9 @@ Entry points:
                                   points and colours (and normals) out; dense or sparse
   models.atvsnet.multi_view_forward, models.tvsnet.two_view_forward
                                   the bare forwards on prepared arrays
+  cli.train, models.train         python -m atvsnet_torch.cli.train: training on rendered
+                                  scenes, MVS-Synth or ETH3D; the losses, the optimizer,
+                                  train_step; utils.ckpt: train-state checkpoints
   params.load_model / init_model / save_params
                                   weights from and to the JAX package's .npz
   data.preprocess, data.cams, data.pfm, data.mvs_list, eval.errors

@@ -1,4 +1,5 @@
-"""Typed configuration for the whole pipeline (the port of atvsnet_tpu/config.py).
+"""Typed configuration for the whole pipeline and for training (the port of
+atvsnet_tpu/config.py).
 
 Same fields and validation as atvsnet_tpu.config.PipelineConfig, minus the knobs that
 only mean something on a TPU (act_quant*, warp_quant, fp32_precision,
@@ -9,6 +10,7 @@ both matmuls and cuDNN convolutions (models.tvsnet.prepare_inputs).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -92,3 +94,45 @@ class PipelineConfig:
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training: the loss weights and the optimizer (atvsnet_tpu.config.TrainConfig, the
+    same fields, defaults and validation)."""
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    # Relative weights of the supervision terms on the initial (per-pair), aggregated
+    # and refined depth maps.
+    loss_weight_initial: float = 0.5
+    loss_weight_agg: float = 1.0
+    loss_weight_refined: float = 1.0
+    grad_clip_norm: Optional[float] = 1.0
+    # Peakiness term: adds loss_weight_confidence * (1 - mean 4-bin confidence of the
+    # final depth over gt-valid pixels). Masked L1 on the expected depth is indifferent
+    # to how concentrated the softmax is; this term keeps the confidence maps sharp.
+    loss_weight_confidence: float = 0.0
+    # 'constant', or 'cosine': linear warmup over warmup_steps, then cosine decay to
+    # lr_final_fraction * learning_rate at decay_steps. The optimizer reads the step from
+    # its own count, so a resumed run continues the schedule where it stopped.
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    decay_steps: int = 10_000
+    lr_final_fraction: float = 0.01
+
+    def __post_init__(self):
+        if self.lr_schedule not in ("constant", "cosine"):
+            raise ValueError(f"lr_schedule must be constant|cosine, got {self.lr_schedule!r}")
+        if self.decay_steps <= 0:
+            raise ValueError("decay_steps must be positive")
+        if self.warmup_steps < 0:
+            raise ValueError("warmup_steps must be >= 0")
+        if self.loss_weight_confidence < 0:
+            raise ValueError("loss_weight_confidence must be >= 0")
+        if self.lr_schedule == "cosine" and self.warmup_steps >= self.decay_steps:
+            # the decay horizon includes the warmup, as optax's does
+            raise ValueError(
+                f"warmup_steps ({self.warmup_steps}) must be < decay_steps "
+                f"({self.decay_steps}): the cosine horizon includes the warmup"
+            )

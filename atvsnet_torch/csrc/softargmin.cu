@@ -36,6 +36,9 @@
 //  - The sweep value is rebuilt as start + d * interval with unfused multiply and add, so
 //    that it rounds like the plain PyTorch version.
 //
+// The file also holds the backward kernel (below: the gradient with respect to the cost),
+// built on the same tiling, packets and exponent.
+//
 // Plain C interface for ctypes; the wrapper (atvsnet_torch/ops/softargmin.py) checks
 // shapes, dtypes and contiguity, picks the path and launches on PyTorch's current stream.
 
@@ -224,6 +227,174 @@ softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
   }
 }
 
+// ---------------------------------------------------------------------------------------
+// Backward: the vector-Jacobian product with respect to the cost,
+//
+//   dcost[b, d, p] = -g[b, p] * prob[b, d, p] * (sweep[b, d] - depth[b, p]),
+//   prob = softmax_d(-cost),  depth = the forward's output,  g = the incoming gradient.
+//
+// Replaces what jax.vjp derives from the XLA formula in atvsnet_tpu/ops/softargmin.py:
+// _fused_bwd (the TPU package has no Pallas backward: pallas_call is not differentiable).
+//
+// Bound: bytes, as the forward: ~8 operations per element against 4 bytes read and 4
+// written (2 and 2 for bf16). Design, the forward's tiling again: a block owns 64 pixels
+// and all of D, its 128 threads are kSlices groups of lanes, each group a slice of D.
+//  - Pass 1: each lane folds its slice into (max, sum of exp) per pixel, as the forward
+//    folds, with the same finite_or_zero rule, so planes of +inf cost get probability 0
+//    and gradient 0. The slices are combined in shared memory into the reference point of
+//    the exponents and g / sum per pixel.
+//  - Pass 2: each lane reads its slice again and writes the gradient, in the cost's dtype
+//    (bf16 rounded to nearest even, as a cast in PyTorch). A block's tile is D x 64 pixels
+//    (32 KB at D = 128 in fp32) and is read again a few microseconds after pass 1, so the
+//    second read is served by the 50 MB L2 at the main path's shapes: the first pass loads
+//    with the default caching, the second with ld.global.cs (last use).
+//  - A pixel whose planes are all +inf gets NaN in every plane, as a softmax gives it.
+// ---------------------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t float_to_bf16_bits(float f) {
+  const uint32_t u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;  // NaN, as PyTorch writes it
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;         // round to nearest even
+}
+
+__device__ __forceinline__ void pack(const float (&v)[4], float4& r) {
+  r = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void pack(const float (&v)[8], uint4& r) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = float_to_bf16_bits(v[2 * i]) | (float_to_bf16_bits(v[2 * i + 1]) << 16);
+  r = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void pack(const float (&v)[1], float& r) { r = v[0]; }
+__device__ __forceinline__ void pack(const float (&v)[1], unsigned short& r) {
+  r = (unsigned short)float_to_bf16_bits(v[0]);
+}
+
+// 4 blocks per SM (<= 128 registers): pass 2 holds a chunk of loads and three values per
+// pixel; the main path's volumes make at most 3.2 blocks per SM (420 on 132 SMs).
+template <typename Raw>
+__global__ void __launch_bounds__(kThreads, 4)
+softargmin_backward_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
+                           const float* __restrict__ interval, const float* __restrict__ depth,
+                           const float* __restrict__ grad_depth, Raw* __restrict__ grad_cost,
+                           int B, int D, int HW) {
+  constexpr int kPix = Packet<Raw>::kPix;
+  constexpr int kChunk = Packet<Raw>::kChunk;
+  constexpr int kLanes = kTile / kPix;
+  constexpr int kSlices = kThreads / kLanes;
+  __shared__ __align__(16) float part[2][kSlices][kTile];  // per slice: max, sum
+  __shared__ float stat[3][kTile];                          // per pixel: ref, g / sum, depth
+
+  const int lane = threadIdx.x % kLanes;
+  const int slice = threadIdx.x / kLanes;
+  const uint32_t total = (uint32_t)B * HW;
+  const uint32_t pix0 = blockIdx.x * kTile + lane * kPix;
+  const bool active = pix0 < total;
+
+  int begin = 0, end = 0;
+  int64_t stride = 0, offset = 0;
+  float s0 = 0.f, step = 0.f;
+  float m[kPix], sum[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) { m[p] = -INFINITY; sum[p] = 0.f; }
+
+  if (active) {
+    const int b = (int)(pix0 / (uint32_t)HW);
+    const int per = (D + kSlices - 1) / kSlices;
+    begin = min(D, slice * per);
+    end = min(D, begin + per);
+    stride = HW / kPix;
+    offset = ((int64_t)b * D * HW + (pix0 - (uint32_t)b * HW)) / kPix;
+    s0 = start[b];
+    step = interval[b];
+    const Raw* src = cost + offset;
+    for (int d0 = begin; d0 < end; d0 += kChunk) {
+      Raw raw[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        raw[j] = (d0 + j < end) ? __ldg(src + (int64_t)(d0 + j) * stride) : Raw{};
+      float v[kChunk][kPix];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        unpack(raw[j], v[j]);
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) v[j][p] = (d0 + j < end) ? -v[j][p] : -INFINITY;
+      }
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        float cm = m[p];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) cm = fmaxf(cm, v[j][p]);
+        const float ref = finite_or_zero(cm);
+        float s = sum[p] * exp_of(m[p] - ref);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) s += exp_of(v[j][p] - ref);
+        m[p] = cm;
+        sum[p] = s;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    part[0][slice][lane * kPix + p] = m[p];
+    part[1][slice][lane * kPix + p] = sum[p];
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kTile) {
+    const uint32_t o = blockIdx.x * kTile + threadIdx.x;
+    float mm = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s) mm = fmaxf(mm, part[0][s][threadIdx.x]);
+    const float ref = finite_or_zero(mm);
+    float ss = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s)
+      ss += part[1][s][threadIdx.x] * exp_of(part[0][s][threadIdx.x] - ref);
+    const bool in = o < total;
+    stat[0][threadIdx.x] = ref;
+    stat[1][threadIdx.x] = in ? grad_depth[o] / ss : 0.f;  // 0 / 0 = NaN if all planes are +inf
+    stat[2][threadIdx.x] = in ? depth[o] : 0.f;
+  }
+  __syncthreads();
+  if (!active) return;
+
+  float ref[kPix], scale[kPix], dep[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    ref[p] = stat[0][lane * kPix + p];
+    scale[p] = stat[1][lane * kPix + p];
+    dep[p] = stat[2][lane * kPix + p];
+  }
+  const Raw* src = cost + offset;
+  Raw* dst = grad_cost + offset;
+  for (int d0 = begin; d0 < end; d0 += kChunk) {
+    Raw raw[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      raw[j] = (d0 + j < end) ? __ldcs(src + (int64_t)(d0 + j) * stride) : Raw{};
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (d0 + j >= end) break;
+      float c[kPix], out[kPix];
+      unpack(raw[j], c);
+      // start + d * interval, rounded like the plain version (no fma)
+      const float sw = __fadd_rn(s0, __fmul_rn((float)(d0 + j), step));
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        const float e = exp_of(-c[p] - ref[p]);
+        out[p] = -(scale[p] * e) * (sw - dep[p]);
+      }
+      Raw packed;
+      pack(out, packed);
+      __stcs(dst + (int64_t)(d0 + j) * stride, packed);
+    }
+  }
+}
+
 // An empty launch of the grid a soft-argmin call uses: its device time is what a launch
 // costs before any byte moves.
 __global__ void __launch_bounds__(kThreads) noop_kernel() {}
@@ -252,6 +423,28 @@ int launch(const void* cost, const void* start, const void* interval, void* out,
   return (int)cudaGetLastError();
 }
 
+template <typename Vec, typename Scalar>
+int launch_backward(const void* cost, const void* start, const void* interval, const void* depth,
+                    const void* grad_depth, void* grad_cost, int B, int D, int HW, int aligned,
+                    void* stream_ptr) {
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const unsigned blocks = grid_blocks(B, HW);
+  const float* s = (const float*)start;
+  const float* i = (const float*)interval;
+  const float* d = (const float*)depth;
+  const float* g = (const float*)grad_depth;
+  if (!aligned) {
+    softargmin_backward_kernel<Scalar><<<blocks, kThreads, 0, stream>>>(
+        (const Scalar*)cost, s, i, d, g, (Scalar*)grad_cost, B, D, HW);
+    return (int)cudaGetLastError();
+  }
+  if ((uintptr_t)cost % 16 || (uintptr_t)grad_cost % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  softargmin_backward_kernel<Vec><<<blocks, kThreads, 0, stream>>>(
+      (const Vec*)cost, s, i, d, g, (Vec*)grad_cost, B, D, HW);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cost (B, D, HW) contiguous, start and interval (B,) fp32, out (B, HW) fp32. `aligned`
@@ -266,6 +459,25 @@ extern "C" int atvsnet_softargmin_bf16(const void* cost, const void* start, cons
                                        void* out, int B, int D, int HW, int aligned,
                                        void* stream) {
   return launch<uint4, unsigned short>(cost, start, interval, out, B, D, HW, aligned, stream);
+}
+
+// The backward: cost (B, D, HW) as the forward's; depth and grad_depth (B, HW) fp32;
+// grad_cost (B, D, HW) in the cost's dtype. `aligned` as above, with grad_cost's pointer
+// checked too. Returns a cudaError_t.
+extern "C" int atvsnet_softargmin_backward_f32(const void* cost, const void* start,
+                                               const void* interval, const void* depth,
+                                               const void* grad_depth, void* grad_cost, int B,
+                                               int D, int HW, int aligned, void* stream) {
+  return launch_backward<float4, float>(cost, start, interval, depth, grad_depth, grad_cost, B,
+                                        D, HW, aligned, stream);
+}
+
+extern "C" int atvsnet_softargmin_backward_bf16(const void* cost, const void* start,
+                                                const void* interval, const void* depth,
+                                                const void* grad_depth, void* grad_cost, int B,
+                                                int D, int HW, int aligned, void* stream) {
+  return launch_backward<uint4, unsigned short>(cost, start, interval, depth, grad_depth,
+                                                grad_cost, B, D, HW, aligned, stream);
 }
 
 extern "C" int atvsnet_softargmin_noop(int B, int HW, void* stream) {

@@ -1,9 +1,8 @@
 """MVS-Synth / DeMoN sequence dataset path (reference atvsnet/mvs_syn_helpers.py +
 preprocess_mvs_syn.py); the port of atvsnet_tpu/data/mvs_syn.py.
 
-Here: SeqImage, MvsSynDataset (neighbor selection, samples, the train/val split) and the
-EXR depth reader. load_training_sample, which builds a training batch, needs
-data/augment.py and comes with the training slice.
+Here: SeqImage, MvsSynDataset (neighbor selection, samples, the train/val split), the
+EXR depth reader and load_training_sample, which builds a training batch.
 
 Layout: <base>/<seq:04d>/{images/%04d.png, poses/%04d.json, depths/%04d.exr,
 neighbors/%04d.json [+ %04d_score.json]} with <base>/num_images.json listing sequence
@@ -26,6 +25,9 @@ from typing import List, Optional
 import numpy as np
 
 from atvsnet_torch.data import image_io
+from atvsnet_torch.data.augment import augment_image_group
+from atvsnet_torch.data.colmap import set_depth_range_from_depthmap
+from atvsnet_torch.geometry.cameras import scale_camera_np
 
 DEMON_TRAIN_SETS = [
     # reference preprocess_mvs_syn.py:404-409
@@ -217,6 +219,60 @@ class MvsSynDataset:
                 continue
             for aug in range(augment_number):
                 yield ids, aug
+
+
+def load_training_sample(
+    dataset: "MvsSynDataset",
+    ids,
+    max_d: int = 128,
+    sample_scale: float = 0.25,
+    inverse_depth: bool = True,
+    augment_rng=None,
+    multi_depth: bool = False,
+):
+    """Read one [ref, views...] sample: images + EXR GT depth -> training batch.
+
+    Returns dict(images (1,N,H,W,3), cams (1,N,2,4,4), depth_gt (1,h,w,1) in sweep space
+    at cost-volume resolution). The depth range comes from the GT depth map (reference
+    eval_pointcloud.py:172-193 / preprocess_colmap.py:238-257).
+
+    multi_depth=True also loads every neighbor view's own-frame GT depth (the reference's
+    gen_mvs_resized_path_multi_depth layout, preprocess_mvs_syn.py:485-582) as
+    depth_views_gt (1, N-1, h, w, 1), which training_loss then supervises the per-pair
+    swapped depths with directly.
+    """
+    imgs = augment_image_group([image_io.imread(dataset.images[i].filepath) for i in ids],
+                               rng=augment_rng)
+    cams = np.stack([dataset.images[i].to_mvsnet_cam(max_d) for i in ids])
+
+    ref = dataset.images[ids[0]]
+    depth = _read_exr_depth(ref.depthpath)
+    if not (depth > 0).any():
+        # e.g. a sky-only frame whose EXR is all inf/0: the angle-fallback neighbors have no
+        # valid-depth screen, and an empty range source would fail deep in the range code
+        raise ValueError(f"no valid GT depth pixels in {ref.depthpath!r}")
+    rng_src = np.where(depth > 0, 1.0 / np.maximum(depth, 1e-10), 0.0) if inverse_depth else depth
+    cams = set_depth_range_from_depthmap(cams, rng_src, max_d)
+    cams = np.stack([scale_camera_np(c, sample_scale) for c in cams])
+
+    h = int(depth.shape[0] * sample_scale)
+    w = int(depth.shape[1] * sample_scale)
+
+    def to_sweep_small(d):
+        small = image_io.resize_to(d.astype(np.float32), w, h, "nearest")
+        if inverse_depth:
+            small = np.where(small > 0, 1.0 / np.maximum(small, 1e-10), 0.0)
+        return small
+
+    out = {
+        "images": np.stack(imgs)[None].astype(np.float32),
+        "cams": cams[None].astype(np.float32),
+        "depth_gt": to_sweep_small(depth)[None, ..., None].astype(np.float32),
+    }
+    if multi_depth:
+        view_gt = [to_sweep_small(_read_exr_depth(dataset.images[i].depthpath)) for i in ids[1:]]
+        out["depth_views_gt"] = np.stack(view_gt)[None, ..., None].astype(np.float32)
+    return out
 
 
 def _read_exr_depth(path: str) -> np.ndarray:

@@ -87,14 +87,15 @@ def extract_features(model: ATVSNet, images: torch.Tensor, cfg: PipelineConfig,
 
 
 class PairOutputs(NamedTuple):
-    depth: torch.Tensor                 # (B, h, w, 1) soft-argmin depth of the ref->view sweep
+    depth: Optional[torch.Tensor]       # (B, h, w, 1) soft-argmin depth of the ref->view sweep
     prob_volume: torch.Tensor           # (B, D, h, w) regularized cost
     filtered_cost: torch.Tensor         # (B, D, h, w, crm_f) filtered cost volume for AAM
     depth_view: torch.Tensor            # (B, h, w, 1) depth of the swapped (view->ref) sweep
 
 
 def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
-                cfg: PipelineConfig, depth_start, depth_interval) -> PairOutputs:
+                cfg: PipelineConfig, depth_start, depth_interval,
+                ref_depth: bool = True) -> PairOutputs:
     """One view pair through cost volume + CRM, in both directions (siamese: the CRM
     weights are shared, reference model.py:398-417).
 
@@ -102,10 +103,14 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
     input convs as 2D convs (the (warped, ref_feature) tuple); only the warped half is
     materialized. cfg.pair_batch runs the two directions as one batch of 2 (the
     soft-argmin then sees one (2B, D, h, w) volume in the place of two (B, D, h, w)).
+    ref_depth=False leaves the reference direction's depth out (depth is None), as the
+    training forward does; it needs the sequential path.
     """
     D = cfg.max_d
 
     if cfg.pair_batch:
+        if not ref_depth:
+            raise ValueError("ref_depth=False needs pair_batch=False")
         # Both directions as two elements of one batch through one set of CRM convs.
         # Exact, with no group argument anywhere: batch_stat_norm takes its statistics
         # per sample, so each stacked sweep is normalized by itself, as it is alone.
@@ -126,7 +131,8 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
 
     warped = sweep(view_feature, ref_cam, view_cam)
     filtered_cost, prob = model.crm((warped, ref_feature), eps=cfg.bn_eps)
-    depth = prob2depth(prob, D, depth_start, depth_interval, impl=cfg.softargmin_impl)
+    depth = (prob2depth(prob, D, depth_start, depth_interval, impl=cfg.softargmin_impl)
+             if ref_depth else None)
 
     warped_v = sweep(ref_feature, view_cam, ref_cam)
     _, prob_view = model.crm((warped_v, view_feature), eps=cfg.bn_eps)

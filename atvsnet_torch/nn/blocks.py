@@ -36,7 +36,7 @@ class Bottleneck(tnn.Module):
 
     def forward(self, x: torch.Tensor, stride: int = 1, rate: int = 1,
                 eps: float = 1e-3) -> torch.Tensor:
-        preact = torch.relu(L.batch_stat_norm(x, eps=eps, beta=self.preact.beta))
+        preact = L.activate(L.batch_stat_norm(x, eps=eps, beta=self.preact.beta))
         if self.shortcut is not None:
             shortcut = L.conv(preact, self.shortcut.w, self.shortcut.b, stride=stride)
         elif stride == 1:

@@ -13,6 +13,9 @@ Weights are stored in PyTorch's layout: conv (out, in, k...), transpose conv
     variance as E[x^2] - mean^2, eps 1e-3, no affine. No torch BatchNorm mode matches.
   * deconv: TF conv_transpose SAME, the exact transpose of the SAME strided conv.
   * avg_pool_same: padding is left out of the mean.
+  * activate (the ReLU): max(y, 0) as jnp.maximum takes it, which splits the gradient of
+    a tie evenly; torch.relu gives a tie no gradient. Ties are real here: batch_stat_norm
+    maps a channel that is constant over the map to exact zeros.
 
 The TPU package's depth-tap decompositions of 3D convs and its int8 paths are TPU
 layout work and are not ported: a 3D conv here is one cuDNN conv3d.
@@ -29,6 +32,16 @@ import torch.nn.functional as F
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+# a CPU scalar: binary ops take it beside a tensor on any device, with no allocation there
+_ZERO = torch.zeros(())
+
+
+def activate(y: torch.Tensor) -> torch.Tensor:
+    """The ReLU: max(y, 0) with jnp.maximum's gradient, 1/2 at y == 0 (torch.relu gives 0
+    there). The values are relu's."""
+    return torch.maximum(y, _ZERO)
 
 
 def _same_pads(in_size: int, k: int, stride: int, rate: int = 1):
@@ -66,7 +79,7 @@ def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """Rank-dispatching TF-SAME conv on channel-last x; w is (out, in, k...)."""
     pads = [_same_pads(s, k, stride, rate) for s, k in zip(x.shape[1:-1], w.shape[2:])]
     y = _padded_conv(x, w, b, stride, rate, pads)
-    return torch.relu(y) if relu else y
+    return activate(y) if relu else y
 
 
 def fixed_pad_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -76,7 +89,7 @@ def fixed_pad_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] =
     pad_total = k + (k - 1) * (rate - 1) - 1
     pads = [(pad_total // 2, pad_total - pad_total // 2)] * (x.ndim - 2)
     y = _padded_conv(x, w, b, stride, rate, pads)
-    return torch.relu(y) if relu else y
+    return activate(y) if relu else y
 
 
 def batch_stat_norm(x: torch.Tensor, eps: float = 1e-3,
@@ -100,7 +113,7 @@ def conv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 1, rate: int = 1,
             relu: bool = True, eps: float = 1e-3) -> torch.Tensor:
     """conv -> batch_stat_norm -> relu (reference network.py:172-215)."""
     y = batch_stat_norm(conv(x, w, stride=stride, rate=rate), eps=eps)
-    return torch.relu(y) if relu else y
+    return activate(y) if relu else y
 
 
 def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False) -> torch.Tensor:
@@ -116,13 +129,13 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
     y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
     y = y[(slice(None), slice(None)) + tuple(slice(b, b + o) for b, o in zip(begs, out_sizes))]
     y = _channels_last(y)
-    return torch.relu(y) if relu else y
+    return activate(y) if relu else y
 
 
 def deconv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = True,
               eps: float = 1e-3) -> torch.Tensor:
     y = batch_stat_norm(deconv(x, w, stride=stride), eps=eps)
-    return torch.relu(y) if relu else y
+    return activate(y) if relu else y
 
 
 def avg_pool_same(x: torch.Tensor, pool: int, stride: int) -> torch.Tensor:
@@ -184,7 +197,7 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
 def conv3d_mixed_bn(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
                     stride: int = 1, relu: bool = True, eps: float = 1e-3) -> torch.Tensor:
     y = batch_stat_norm(conv3d_mixed(w, varying, const2d, stride=stride), eps=eps)
-    return torch.relu(y) if relu else y
+    return activate(y) if relu else y
 
 
 # ---------------------------------------------------------------------------

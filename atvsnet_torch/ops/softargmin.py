@@ -1,4 +1,4 @@
-"""Fused soft-argmin over the depth axis: a hand-written CUDA kernel and its plain versions.
+"""Fused soft-argmin over the depth axis: hand-written CUDA kernels and their plain versions.
 
     depth[b, h, w] = sum_d sweep[b, d] * softmax_d(-cost[b, d, h, w]),
     sweep[b, d] = start[b] + d * interval[b]
@@ -17,6 +17,12 @@ mirrors the kernel's split of D into slices and chunks. `softargmin` picks by `i
 ("auto" = the kernel for CUDA tensors, `softargmin_torch` for CPU tensors). There is no
 fallback from the kernel to a plain version: a CUDA tensor that the kernel cannot take
 raises.
+
+The gradient: `softargmin_backward_cuda` launches the backward kernel of the same source
+(same paths, its own counters), d cost = -g * softmax(-cost) * (sweep - depth), and
+`softargmin_backward_torch` is its plain version. `SoftArgminFunction` ties a forward and
+a backward together for autograd; `softargmin` uses it on the kernel's route whenever
+gradients are being recorded for the cost, and the direct launch otherwise.
 """
 
 from __future__ import annotations
@@ -79,6 +85,9 @@ def _library() -> ctypes.CDLL:
             for fn in (lib.atvsnet_softargmin_f32, lib.atvsnet_softargmin_bf16):
                 fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            for fn in (lib.atvsnet_softargmin_backward_f32, lib.atvsnet_softargmin_backward_bf16):
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             lib.atvsnet_softargmin_noop.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.atvsnet_softargmin_noop.restype = ctypes.c_int
             _lib = lib
@@ -92,11 +101,17 @@ def sweep(depth_num: int, depth_start: torch.Tensor, depth_interval: torch.Tenso
             + steps[None] * depth_interval.to(torch.float32)[:, None])
 
 
+def _compute_dtype(cost_volume: torch.Tensor) -> torch.dtype:
+    """fp32 for fp32 and narrower costs (the kernels' arithmetic); fp64 stays fp64."""
+    return torch.promote_types(cost_volume.dtype, torch.float32)
+
+
 def softargmin_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
                      depth_interval: torch.Tensor) -> torch.Tensor:
-    """Plain version: cost (B, D, h, w) any float dtype -> depth (B, h, w, 1) fp32."""
+    """Plain version: cost (B, D, h, w) any float dtype -> depth (B, h, w, 1) fp32 (fp64
+    for an fp64 cost)."""
     D = cost_volume.shape[1]
-    p = torch.softmax(-cost_volume.to(torch.float32), dim=1)
+    p = torch.softmax(-cost_volume.to(_compute_dtype(cost_volume)), dim=1)
     s = sweep(D, depth_start, depth_interval)
     return torch.sum(s[:, :, None, None] * p, dim=1)[..., None]
 
@@ -149,29 +164,49 @@ def kernel_path(data_ptr: int, plane_elements: int, dtype: torch.dtype) -> str:
     return "aligned" if data_ptr % ALIGNMENT == 0 and stride % ALIGNMENT == 0 else "scalar"
 
 
+def _check_launch_inputs(name: str, cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                        depth_interval: torch.Tensor, maps=()) -> None:
+    """What both kernels need: cost (B, D, h, w) fp32/bf16 contiguous with fewer than 2^31
+    elements, start/interval (B,) fp32, and each of `maps` (B, h, w, 1) fp32, all contiguous
+    on the cost's CUDA device."""
+    if cost_volume.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {cost_volume.device}")
+    if cost_volume.dim() != 4:
+        raise ValueError(f"cost volume must be (B, D, h, w), got {tuple(cost_volume.shape)}")
+    B, D, h, w = cost_volume.shape
+    checks = [("depth_start", depth_start, (B,)), ("depth_interval", depth_interval, (B,))]
+    checks += [(n, t, (B, h, w, 1)) for n, t in maps]
+    for arg, t, shape in checks:
+        if t.device != cost_volume.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{arg} must be {shape} float32 on {cost_volume.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    if not cost_volume.is_contiguous():
+        raise ValueError("cost volume must be contiguous")
+    if cost_volume.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cost volume must be float32 or bfloat16, got {cost_volume.dtype}")
+    if B * D * h * w >= 2**31 or B * D * h * w == 0:
+        raise ValueError(f"unsupported cost volume shape {tuple(cost_volume.shape)}")
+
+
+def _count(fn, path: str, shape) -> None:
+    fn.launches += 1
+    fn.path_launches[path] += 1
+    fn.shape_launches[shape] = fn.shape_launches.get(shape, 0) + 1
+
+
+def _dtype_suffix(dtype: torch.dtype) -> str:
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+
 def softargmin_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
                     depth_interval: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: cost (B, D, h, w) fp32/bf16 contiguous, start/interval (B,)
     fp32 contiguous, all on one CUDA device -> depth (B, h, w, 1) fp32."""
-    if cost_volume.device.type != "cuda":
-        raise ValueError(f"softargmin_cuda needs CUDA tensors, got {cost_volume.device}")
-    if cost_volume.dim() != 4:
-        raise ValueError(f"cost volume must be (B, D, h, w), got {tuple(cost_volume.shape)}")
+    _check_launch_inputs("softargmin_cuda", cost_volume, depth_start, depth_interval)
     B, D, h, w = cost_volume.shape
-    for name, t in (("depth_start", depth_start), ("depth_interval", depth_interval)):
-        if t.device != cost_volume.device or t.dtype != torch.float32 or t.shape != (B,):
-            raise ValueError(f"{name} must be ({B},) float32 on {cost_volume.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not cost_volume.is_contiguous():
-        raise ValueError("cost volume must be contiguous")
-    fns = {torch.float32: "atvsnet_softargmin_f32", torch.bfloat16: "atvsnet_softargmin_bf16"}
-    if cost_volume.dtype not in fns:
-        raise ValueError(f"cost volume must be float32 or bfloat16, got {cost_volume.dtype}")
-    if B * D * h * w >= 2**31 or B * D * h * w == 0:
-        raise ValueError(f"unsupported cost volume shape {tuple(cost_volume.shape)}")
-    fn = getattr(_library(), fns[cost_volume.dtype])
+    fn = getattr(_library(), "atvsnet_softargmin_" + _dtype_suffix(cost_volume.dtype))
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
     out = torch.empty((B, h, w, 1), device=cost_volume.device, dtype=torch.float32)
     with torch.cuda.device(cost_volume.device):
@@ -180,27 +215,64 @@ def softargmin_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
                  out.data_ptr(), B, D, h * w, int(path == "aligned"), stream)
     if err != 0:
         raise RuntimeError(f"softargmin kernel launch failed on the {path} path: cudaError {err}")
-    softargmin_cuda.launches += 1
-    softargmin_cuda.path_launches[path] += 1
-    shape = (B, D, h, w)
-    softargmin_cuda.shape_launches[shape] = softargmin_cuda.shape_launches.get(shape, 0) + 1
+    _count(softargmin_cuda, path, (B, D, h, w))
+    return out
+
+
+def softargmin_backward_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                              depth_interval: torch.Tensor, depth: torch.Tensor,
+                              grad: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward, in closed form: the gradient of the loss with
+    respect to the cost, -grad * softmax_d(-cost) * (sweep_d - depth), in fp32 and then in
+    the cost's dtype. cost (B, D, h, w); depth, the forward's output, and grad, the loss's
+    gradient with respect to it, (B, h, w, 1) -> (B, D, h, w). fp64 inputs stay fp64."""
+    D, dtype = cost_volume.shape[1], _compute_dtype(cost_volume)
+    p = torch.softmax(-cost_volume.to(dtype), dim=1)
+    s = sweep(D, depth_start, depth_interval)[:, :, None, None]
+    g, d = grad.to(dtype)[..., 0][:, None], depth.to(dtype)[..., 0][:, None]
+    return (-(g * p) * (s - d)).to(cost_volume.dtype)
+
+
+def softargmin_backward_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                             depth_interval: torch.Tensor, depth: torch.Tensor,
+                             grad: torch.Tensor) -> torch.Tensor:
+    """Launch the backward kernel: the inputs of `softargmin_cuda`, plus the forward's
+    depth and the incoming gradient, both (B, h, w, 1) fp32 contiguous -> the gradient
+    with respect to the cost, (B, D, h, w) in the cost's dtype. The path follows the same
+    rule as the forward's (`kernel_path`); the output is a fresh, aligned allocation."""
+    _check_launch_inputs("softargmin_backward_cuda", cost_volume, depth_start, depth_interval,
+                         maps=(("depth", depth), ("grad", grad)))
+    B, D, h, w = cost_volume.shape
+    fn = getattr(_library(), "atvsnet_softargmin_backward_" + _dtype_suffix(cost_volume.dtype))
+    path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
+    out = torch.empty_like(cost_volume)
+    with torch.cuda.device(cost_volume.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cost_volume.data_ptr(), depth_start.data_ptr(), depth_interval.data_ptr(),
+                 depth.data_ptr(), grad.data_ptr(), out.data_ptr(), B, D, h * w,
+                 int(path == "aligned"), stream)
+    if err != 0:
+        raise RuntimeError(f"softargmin backward kernel launch failed on the {path} path: "
+                           f"cudaError {err}")
+    _count(softargmin_backward_cuda, path, (B, D, h, w))
     return out
 
 
 def reset_launch_counts() -> None:
-    """Set the kernel's launch counts (total, per path, per volume shape) to 0."""
-    softargmin_cuda.launches = 0
-    softargmin_cuda.path_launches = dict.fromkeys(PATHS, 0)
-    softargmin_cuda.shape_launches = {}
+    """Set both kernels' launch counts (total, per path, per volume shape) to 0."""
+    for fn in (softargmin_cuda, softargmin_backward_cuda):
+        fn.launches = 0
+        fn.path_launches = dict.fromkeys(PATHS, 0)
+        fn.shape_launches = {}
 
 
 reset_launch_counts()
 
 
 def empty_launch(cost_volume: torch.Tensor) -> None:
-    """Launch the library's no-op kernel on the grid that `softargmin_cuda` uses for this
-    volume. It moves no byte and counts as no launch: its device time is what a launch of
-    that grid costs."""
+    """Launch the library's no-op kernel on the grid that `softargmin_cuda` (and the
+    backward) uses for this volume. It moves no byte and counts as no launch: its device
+    time is what a launch of that grid costs."""
     B, _, h, w = cost_volume.shape
     with torch.cuda.device(cost_volume.device):
         err = _library().atvsnet_softargmin_noop(B, h * w, torch.cuda.current_stream().cuda_stream)
@@ -208,14 +280,52 @@ def empty_launch(cost_volume: torch.Tensor) -> None:
         raise RuntimeError(f"empty launch failed: cudaError {err}")
 
 
+class SoftArgminFunction(torch.autograd.Function):
+    """Soft-argmin with its closed-form backward, for autograd: the counterpart of the JAX
+    package's custom_vjp `softargmin_fused`.
+
+    `apply(cost, depth_start, depth_interval)`: cost (B, D, h, w) fp32/bf16, start and
+    interval (B,) fp32, all CUDA tensors -> depth (B, h, w, 1) fp32. It launches the two
+    kernels (`softargmin_cuda`, then `softargmin_backward_cuda` on the saved cost and
+    depth) and raises ValueError for a tensor that is not on the card, as they do; the
+    plain route's gradient is autograd of `softargmin_torch`. The gradient reaches the
+    cost only. The sweep comes from the cameras, which training never differentiates
+    (neither does the JAX package): the backward returns None for start and interval, and
+    a call in which either of them requires grad raises ValueError.
+    """
+
+    @staticmethod
+    def forward(ctx, cost_volume, depth_start, depth_interval):
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            raise ValueError("the soft-argmin's gradient reaches the cost only: depth_start "
+                             "and depth_interval must not require grad")
+        depth = softargmin_cuda(cost_volume, depth_start, depth_interval)
+        ctx.save_for_backward(cost_volume, depth_start, depth_interval, depth)
+        return depth
+
+    @staticmethod
+    def backward(ctx, grad):
+        cost_volume, depth_start, depth_interval, depth = ctx.saved_tensors
+        grad = grad.to(depth.dtype).contiguous()
+        return (softargmin_backward_cuda(cost_volume, depth_start, depth_interval, depth, grad),
+                None, None)
+
+
 def softargmin(cost_volume: torch.Tensor, depth_num: int, depth_start: torch.Tensor,
                depth_interval: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """prob2depth(out_prob_map=False): cost (B, D, h, w) -> depth (B, h, w, 1) fp32."""
+    """prob2depth(out_prob_map=False): cost (B, D, h, w) -> depth (B, h, w, 1) fp32.
+
+    On the kernel's route ("cuda", or "auto" with a CUDA tensor) a cost that gradients are
+    recorded for goes through SoftArgminFunction (forward and backward kernels); otherwise
+    the forward kernel is launched directly. The plain route is softargmin_torch, whose
+    gradient autograd derives."""
     if cost_volume.shape[1] != depth_num:
         raise ValueError(f"cost volume has {cost_volume.shape[1]} planes, expected {depth_num}")
     use_kernel = {"auto": cost_volume.device.type == "cuda", "cuda": True, "torch": False}[impl]
     if not use_kernel:
         return softargmin_torch(cost_volume, depth_start, depth_interval)
-    return softargmin_cuda(cost_volume.contiguous(),
-                           depth_start.to(torch.float32).contiguous(),
-                           depth_interval.to(torch.float32).contiguous())
+    args = (cost_volume.contiguous(), depth_start.to(torch.float32).contiguous(),
+            depth_interval.to(torch.float32).contiguous())
+    if torch.is_grad_enabled() and cost_volume.requires_grad:
+        return SoftArgminFunction.apply(*args)
+    return softargmin_cuda(*args)

@@ -7,11 +7,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
   2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu into build/atvsnet_torch/
   3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
-                1e-6, NaN at the same pixels) at the main path's shapes, at edge shapes
+                1e-6, NaN at the same pixels) at the main paths' shapes (the train
+                shape (1,32,32,40) in fp32 and bf16 among them), at edge shapes
                 (odd h*w, D = 1, 12, 130, B = 3, a pointer that is not 16-byte aligned)
                 and on volumes with planes of +inf cost; each line names the kernel's
                 path, "aligned" (16-byte loads) or "scalar", and the path's counter is
-                checked
+                checked. Then the backward kernel (direction "backward") against the
+                closed-form plain backward (fp32 rtol 1e-5, bf16 one bf16 ulp, atol 1e-6
+                of the largest gradient) and against autograd of the plain forward (atol
+                1e-5 * max|g| * max|sweep|), at the train shape (1,32,32,40), the
+                flagship's shapes, odd h*w, D = 1 and 130, a misaligned pointer, +inf planes
   4. small      a 3-view 64x96 D32 forward on trained weights, on the GPU (kernel) and on
                 the CPU (plain path): the two must agree and recover the rendered scene
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
@@ -20,8 +25,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms)
   6. timing     steady-state forward time and peak memory (default and deterministic
-                cuDNN algorithms), and per-shape kernel times beside the plain
-                version's, the HBM bound and an empty launch of the same grid
+                cuDNN algorithms); the forward with the port's activation
+                (torch.maximum(y, 0), the JAX package's tie rule) against torch.relu, in
+                turns; and per-shape kernel times beside the plain version's, the HBM
+                bound and an empty launch of the same grid
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket
   8. pair_batch the same forward with pair_batch=True against pair_batch=False (cuDNN's
@@ -49,10 +56,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 soft-argmin launches per shape and path, every depth map scored against the
                 scene's ground truth, maps/s, the blocked-time split, peak memory; batch=2
                 against batch=1; then fusion.fuse.fuse_scene at its defaults: point count
+ 14. train      training at the train CLI's default size (3 views, 128x160, D=32): (a) one
+                fp32 training_loss + backward through the kernels against impl="torch"
+                on the same inputs and spheres weights (deterministic cuDNN): loss rtol
+                1e-5, gradients within 5e-3 globally, soft-argmin launches per shape and
+                direction with the confidence term off and on and with remat; (b) the
+                same step on device="cpu": loss rtol 1e-4; (c) cli.train.main for 30
+                steps at its defaults (bf16) from init_model: finite losses, steps/s, the
+                first step's seconds, peak memory, launches, --resume, the exported
+                params load and run; (d) one fp32 step at 5 views, 480x896, D=128 with
+                the spheres weights, remat off and on: seconds and peak memory
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only native fusion eval` runs just those phases after
+nothing of JAX or of atvsnet_tpu. `--only native fusion eval train` runs just those phases after
 device and build: a short run while working on one of them, which exits 1 and prints no
 kernels line and no ok line.
 """
@@ -73,9 +90,10 @@ import numpy as np
 import torch
 
 from atvsnet_torch import native
+from atvsnet_torch.cli import train as train_cli
 from atvsnet_torch.cli.eval_pointcloud import run_eval_pc
 from atvsnet_torch.cli.example import run_example
-from atvsnet_torch.config import PipelineConfig
+from atvsnet_torch.config import PipelineConfig, TrainConfig
 from atvsnet_torch.data import image_io
 from atvsnet_torch.data.pfm import load_pfm
 from atvsnet_torch.data.preprocess import prepare_mvs_sample
@@ -90,8 +108,10 @@ from atvsnet_torch.geometry.cameras import scale_camera_np
 from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
                                           refine_pairs_batched, sweep_to_depth)
 from atvsnet_torch.geometry.depth_regression import prob2depth, prob2depth_upsample
+from atvsnet_torch.models.train import init_train_state, loss_and_grads, make_optimizer, train_step
 from atvsnet_torch.models.tvsnet import (aam_aggregate_stacked, aam_output_conv, extract_features,
-                                         prepare_inputs, refinement, tvsnet_base)
+                                         init_model, prepare_inputs, refinement, tvsnet_base)
+from atvsnet_torch.nn import layers as L
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
 from atvsnet_torch.serving import DepthEstimator
@@ -173,6 +193,32 @@ EVAL_MAX_MAE, EVAL_MIN_INLIER3, EVAL_MIN_POINTS = 0.01, 0.90, 100_000
 # of the same pixel) and their colours agree to +-1.
 FUSION_MAX_UNMATCHED, FUSION_COLOUR_TOL = 1e-3, 1
 FUSION_FLOP_PER_CHECK = 60  # per (reference pixel, view): project, 4-corner blend of 4 channels, test
+# The backward kernel: per cost element two exponent arguments, an exponent in each pass,
+# the sum, the sweep difference and two products; it reads the cost and writes its gradient.
+BWD_FLOPS_PER_ELEMENT = 8
+# Bounds of the backward kernel, stated before its first run on a card. Against the
+# closed-form plain backward: fp32 rtol 1e-5 (ex2.approx and the order of two products),
+# bf16 one bf16 ulp (both round the same fp32 formula); atol 1e-6 of the largest gradient
+# (values the kernel's flush-to-zero exponent makes 0). Against autograd of the plain
+# forward: atol 1e-5 * max|g| * max|sweep|, since that formula subtracts two values of
+# that size (p * (g * sweep - sum p * g * sweep)).
+BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# Training at the train CLI's default size, the size the committed weights were trained at.
+TRAIN_SIZE = dict(view_num=3, max_d=32, max_h=128, max_w=160)
+TRAIN_SHAPE = (1, 32, 32, 40)
+# soft-argmin launches per training loss and backward at 3 views, keyed (remat, confidence
+# weight) -> (forward, backward): stage 1 one per pair (the reference direction's depth is
+# in no loss), AAM1's, and the final depth's unless the confidence term sends it through
+# the plain confidence formula; remat recomputes stage 1 in the backward
+TRAIN_LAUNCHES = {(False, 0.0): (4, 4), (False, 0.5): (3, 3), (True, 0.0): (6, 4)}
+# kernel route against impl="torch" on the card (deterministic cuDNN), held to the CPU
+# tests' bounds against JAX (tests/test_torch_train.py): loss rtol 1e-5, the gradients'
+# global relative difference 5e-3; the card against device="cpu": loss rtol 1e-4
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_CPU_LOSS_RTOL = 1e-5, 5e-3, 1e-4
+CLI_STEPS = 30
+# the flagship forward with each activation, in this order: every relu beside a maximum,
+# first and last alike, so that a drift of the host's launch rate falls on both
+ACTIVATION_ORDER = ("relu", "maximum", "maximum", "relu") * 3
 
 
 def emit(**record):
@@ -223,6 +269,17 @@ def bound_ms(shape, elem_bytes: int, kind: str):
     nbytes = B * D * h * w * elem_bytes + B * h * w * 4 + 2 * B * 4
     t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
     t_ops = B * D * h * w * FLOPS_PER_ELEMENT / FP32_FLOP_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def backward_bound_ms(shape, elem_bytes: int, kind: str):
+    """Least time for one backward call: the cost read once and its gradient written once,
+    the depth and incoming gradient maps and start/interval read once, over HBM
+    bandwidth, vs BWD_FLOPS_PER_ELEMENT operations per element over the fp32 peak."""
+    B, D, h, w = shape
+    nbytes = 2 * B * D * h * w * elem_bytes + 2 * B * h * w * 4 + 2 * B * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    t_ops = B * D * h * w * BWD_FLOPS_PER_ELEMENT / FP32_FLOP_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -295,6 +352,8 @@ def kernel_cases():
     cases = [("main native", (1, 128, 120, 224), f32, "aligned", None),
              ("main native bf16", (1, 128, 120, 224), bf16, "aligned", None),
              ("main tile", (1, 128, 120, 896), f32, "aligned", None),
+             ("train", TRAIN_SHAPE, f32, "aligned", None),
+             ("train bf16", TRAIN_SHAPE, bf16, "aligned", None),
              ("main pair_batch", (2, 128, 120, 224), f32, "aligned", None),
              ("eval native", (1, 128, 128, 160), f32, "aligned", None),
              ("eval native batch 2", (2, 128, 128, 160), f32, "aligned", None),
@@ -347,6 +406,80 @@ def phase_kernel() -> float:
             raise AssertionError(f"soft-argmin kernel case '{name}' at {shape}: wrong path, NaN "
                                  "pattern or values against the plain version")
         worst = max(worst, float(err.max()))
+    return worst
+
+
+def backward_cases():
+    """(name, shape, dtype, path expected, transform of the seeded inputs or None)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("train", TRAIN_SHAPE, f32, "aligned", None),
+             ("train bf16", TRAIN_SHAPE, bf16, "aligned", None),
+             ("main native", (1, 128, 120, 224), f32, "aligned", None),
+             ("main native bf16", (1, 128, 120, 224), bf16, "aligned", None),
+             ("main tile", (1, 128, 120, 896), f32, "aligned", None),
+             ("odd h*w", (1, 12, 3, 33), f32, "scalar", None),
+             ("odd h*w bf16", (1, 32, 5, 7), bf16, "scalar", None),
+             ("D=1", (2, 1, 6, 8), f32, "aligned", None),
+             ("D=130", (1, 130, 6, 40), f32, "aligned", None),
+             ("D=130 bf16", (1, 130, 6, 40), bf16, "aligned", None),
+             ("misaligned pointer", (1, 128, 120, 224), f32, "scalar", "misaligned"),
+             ("misaligned pointer bf16", (1, 128, 120, 224), bf16, "scalar", "misaligned")]
+    for which in ("first8", "slice", "all_but_one", "all"):
+        cases += [(f"+inf {which}", (1, 128, 120, 224), f32, "aligned", which),
+                  (f"+inf {which} scalar", (2, 130, 3, 33), f32, "scalar", which)]
+    return cases
+
+
+def backward_inputs(shape, dtype, seed, transform=None):
+    """The kernel inputs of `kernel_inputs`, the plain forward's depth and a seeded
+    incoming gradient."""
+    cost, ds, di = kernel_inputs(shape, dtype, seed)
+    if transform == "misaligned":
+        cost = misaligned_view(cost)
+    elif transform is not None:
+        cost = with_inf_planes(cost, transform)
+    depth = S.softargmin_torch(cost, ds, di)
+    g = torch.randn(depth.shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    return cost, ds, di, depth, g
+
+
+def _within(got, want, rtol, atol):
+    """NaN at the same elements, and |got - want| <= atol + rtol |want| elsewhere:
+    (ok, max abs difference)."""
+    nan = torch.isnan(want)
+    err = torch.where(nan, torch.zeros_like(want), (got - want).abs())
+    ok = torch.equal(torch.isnan(got), nan) and bool((err <= atol + rtol * want.abs())[~nan].all())
+    return ok, float(err.max())
+
+
+def phase_kernel_backward() -> float:
+    """The backward kernel against the closed-form plain backward and against autograd of
+    the plain forward, on the same inputs; returns the largest difference to the former."""
+    worst = 0.0
+    for i, (name, shape, dtype, path, transform) in enumerate(backward_cases()):
+        cost, ds, di, depth, g = backward_inputs(shape, dtype, 200 + i, transform)
+        before = dict(S.softargmin_backward_cuda.path_launches)
+        got = S.softargmin_backward_cuda(cost, ds, di, depth, g).float()
+        ref = S.softargmin_backward_torch(cost, ds, di, depth, g).float()
+        leaf = cost.detach().clone().requires_grad_(True)
+        S.softargmin_torch(leaf, ds, di).backward(g)
+        torch.cuda.synchronize()
+        took = [p for p in S.PATHS if S.softargmin_backward_cuda.path_launches[p] == before[p] + 1]
+        scale = float(ref.nan_to_num(0.0).abs().max())
+        plain_ok, err = _within(got, ref, BWD_RTOL[dtype], 1e-6 * scale)
+        auto_atol = 1e-5 * float(g.abs().max()) * float(S.sweep(shape[1], ds, di).abs().max())
+        auto_ok, err_auto = _within(got, leaf.grad.float(), BWD_RTOL[dtype], auto_atol)
+        # only the all-planes case has NaN: every plane of pixel (0, 0) of every sample
+        nan = int(torch.isnan(got).sum())
+        ok = (took == [path] and plain_ok and auto_ok
+              and nan == (shape[0] * shape[1] if transform == "all" else 0))
+        emit(phase="kernel", direction="backward", case=name, shape=list(shape),
+             dtype=str(dtype).split(".")[-1], path=took, nan_elements=nan, max_abs_err=err,
+             max_abs_err_vs_autograd=err_auto, gradient_scale=scale, ok=ok)
+        if not ok:
+            raise AssertionError(f"soft-argmin backward case '{name}' at {shape}: wrong path, NaN "
+                                 "pattern or values against the plain backward or autograd")
+        worst = max(worst, err)
     return worst
 
 
@@ -431,6 +564,7 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
              dtype=cfg.compute_dtype, seconds_each=times, seconds_median=sec,
              maps_per_s=1.0 / sec, peak_memory_bytes=torch.cuda.max_memory_allocated())
     torch.backends.cudnn.deterministic = False
+    phase_activation(model, images, cams, cfg)
 
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = "bytes"
@@ -464,6 +598,63 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
             totals["plain_ms"] += n * p_ms
             totals["bound_ms"] += n * b_ms
             bound_by = b_by if b_by == "operations" else bound_by
+    return totals, bound_by
+
+
+def phase_activation(model, images, cams, cfg):
+    """Seconds of the flagship forward with the port's activation, torch.maximum(y, 0)
+    (L.activate), against the same forward with torch.relu in its place: the same values,
+    another gradient at a tie. Timed in turns (ACTIVATION_ORDER) after one warm forward of
+    each; the module's activation is put back whatever happens."""
+    port_activate = L.activate
+    seconds = {"relu": [], "maximum": []}
+    try:
+        for name in ("relu", "maximum") + ACTIVATION_ORDER:
+            L.activate = torch.relu if name == "relu" else port_activate
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            multi_view_forward(model, images, cams, cfg)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+    finally:
+        L.activate = port_activate
+    relu, maximum = seconds["relu"][1:], seconds["maximum"][1:]   # the warm ones dropped
+    emit(phase="timing", what="activation", order=list(ACTIVATION_ORDER),
+         relu_seconds=relu, maximum_seconds=maximum,
+         relu_median=float(np.median(relu)), maximum_median=float(np.median(maximum)),
+         maximum_over_relu=float(np.median(maximum) / np.median(relu)))
+
+
+def phase_timing_backward(kind):
+    """Device times of the backward kernel beside the plain backward's, its bound and an
+    empty launch of its grid: at the train shape (the CLI's bf16 and fp32), the flagship's
+    shapes, and the scalar path at the native shape. Returns the kernel, plain and bound
+    milliseconds of one CLI train step (its launches at the train shape, bf16)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    per_step = TRAIN_LAUNCHES[(False, 0.0)][1]
+    totals, bound_by = {}, "bytes"
+    for shape, dtype, path in [(TRAIN_SHAPE, bf16, "aligned"), (TRAIN_SHAPE, f32, "aligned"),
+                               ((1, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 896), f32, "aligned"),
+                               ((1, 128, 120, 224), bf16, "aligned"), ((1, 128, 120, 224), f32, "scalar")]:
+        elem = torch.tensor([], dtype=dtype).element_size()
+        nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
+        bufs = [backward_inputs(shape, dtype, 300 + i, "misaligned" if path == "scalar" else None)
+                for i in range(nbuf)]
+        if {S.kernel_path(b[0].data_ptr(), shape[2] * shape[3], dtype) for b in bufs} != {path}:
+            raise AssertionError(f"backward timing buffers at {shape} are not all on the {path} path")
+        k_ms = device_ms(S.softargmin_backward_cuda, bufs, 50)
+        p_ms = device_ms(S.softargmin_backward_torch, bufs, 20)
+        e_ms = device_ms(lambda c, *_: S.empty_launch(c), bufs, 50)
+        b_ms, b_by = backward_bound_ms(shape, elem, kind)
+        emit(phase="timing", what="softargmin_backward", shape=list(shape),
+             dtype=str(dtype).split(".")[-1], path=path, kernel_ms=k_ms, plain_ms=p_ms,
+             bound_ms=b_ms, bound_by=b_by, empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms,
+             kernel_gb_per_s=2 * math.prod(shape) * elem / (k_ms * 1e-3) / 1e9, buffers=nbuf,
+             library_ms=None, library="none: no single PyTorch call computes this gradient")
+        del bufs
+        if shape == TRAIN_SHAPE and dtype == bf16:
+            totals = {"ms": per_step * k_ms, "plain_ms": per_step * p_ms, "bound_ms": per_step * b_ms}
+            bound_by = b_by
     return totals, bound_by
 
 
@@ -1123,12 +1314,171 @@ def phase_eval():
     return launches
 
 
+def train_batch(cfg, seed, num_spheres=2):
+    s = render_multiplane_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w, D=cfg.max_d,
+                                seed=seed, num_spheres=num_spheres)
+    return {k: s[k] for k in ("images", "cams", "depth_gt")}
+
+
+def grad_rel(got: dict, want: dict) -> float:
+    """Global relative difference of two {name: gradient} dicts."""
+    num = sum(float((got[n].float().cpu() - want[n].float().cpu()).square().sum()) for n in want)
+    return (num / sum(float(want[n].float().cpu().square().sum()) for n in want)) ** 0.5
+
+
+def launch_record() -> dict:
+    return {d: {"launches": fn.launches, "by_path": dict(fn.path_launches),
+                "by_shape": shape_counts(fn.shape_launches)}
+            for d, fn in (("forward", S.softargmin_cuda), ("backward", S.softargmin_backward_cuda))}
+
+
+def phase_train():
+    """Training: (a) the kernel route against impl="torch" on the card, (b) against the
+    CPU, (c) the CLI, (d) one flagship-size step with remat off and on. Returns the
+    forward and backward kernels' launches in the CLI run."""
+    cfg = PipelineConfig(**TRAIN_SIZE)                      # fp32
+    batch = train_batch(cfg, seed=3)
+    model = load_model(SPHERES, cfg, device="cuda").requires_grad_(True)
+
+    # (a) kernel route against the plain route, same inputs and weights, deterministic cuDNN
+    torch.backends.cudnn.deterministic = True
+    rows, ok = {}, True
+    for (remat, conf), expected in TRAIN_LAUNCHES.items():
+        c, t = cfg.replace(remat=remat), TrainConfig(loss_weight_confidence=conf)
+        torch.cuda.synchronize()
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss_k, _, g_k = loss_and_grads(model, batch, c.replace(softargmin_impl="cuda"), t)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = launch_record()
+        t0 = time.perf_counter()
+        loss_p, _, g_p = loss_and_grads(model, batch, c.replace(softargmin_impl="torch"), t)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        rel = grad_rel(g_k, g_p)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+        row_ok = ((launches["forward"]["launches"], launches["backward"]["launches"]) == expected
+                  and all(launches[d]["by_shape"] == {"x".join(map(str, TRAIN_SHAPE)): n}
+                          for d, n in zip(("forward", "backward"), expected))
+                  and all(launches[d]["by_path"]["scalar"] == 0 for d in launches)
+                  and loss_rel <= TRAIN_LOSS_RTOL and rel <= TRAIN_GRAD_REL and finite)
+        rows[f"remat={remat} conf_weight={conf}"] = {
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_rel": loss_rel,
+            "grad_rel": rel, "finite": finite, "expected_launches": list(expected),
+            "launches": launches, "seconds_kernel": kernel_s, "seconds_plain": plain_s, "ok": row_ok}
+        ok = ok and row_ok
+        if (remat, conf) == (False, 0.0):
+            card_loss, card_grads = float(loss_k), {n: g.cpu() for n, g in g_k.items()}
+        del g_k, g_p
+    torch.backends.cudnn.deterministic = False
+    emit(phase="train", part="a: kernel route vs plain route on the card", size=TRAIN_SIZE,
+         dtype="float32", loss_rtol=TRAIN_LOSS_RTOL, grad_rel_bound=TRAIN_GRAD_REL, runs=rows, ok=ok)
+    if not ok:
+        raise AssertionError("train (a): kernel and plain routes disagree or launches are wrong")
+    del model
+
+    # (b) the same step on the CPU (PyTorch's own convolutions: see cli/train.py)
+    cpu_model = load_model(SPHERES, cfg, device="cpu").requires_grad_(True)
+    t0 = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss_c, _, g_c = loss_and_grads(cpu_model, batch, cfg, TrainConfig())
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(card_loss - float(loss_c)) / abs(float(loss_c))
+    rel = grad_rel(card_grads, g_c)
+    ok = loss_rel <= TRAIN_CPU_LOSS_RTOL and all(bool(torch.isfinite(g).all()) for g in g_c.values())
+    emit(phase="train", part="b: card vs cpu", loss_card=card_loss, loss_cpu=float(loss_c),
+         loss_rel=loss_rel, loss_rtol=TRAIN_CPU_LOSS_RTOL, grad_rel=rel, cpu_seconds=cpu_s,
+         cpu_threads=torch.get_num_threads(), ok=ok)
+    if not ok:
+        raise AssertionError("train (b): the card's loss is not the CPU's")
+    del cpu_model, g_c, card_grads
+
+    # (c) the CLI at its defaults (bf16), from init_model, into a temp dir
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path, export = os.path.join(tmp, "state.npz"), os.path.join(tmp, "params.npz")
+        args = ["--synthetic_planes", "--num_spheres", "2", "--device", "cuda", "--ckpt",
+                state_path, "--log_every", "10"]
+        torch.cuda.empty_cache()
+        S.reset_launch_counts()
+        run = train_cli.main(args + ["--steps", str(CLI_STEPS), "--export_params", export])
+        cli_launches = launch_record()
+        resumed = train_cli.main(args + ["--steps", str(CLI_STEPS + 5), "--resume"])
+        exported = load_model(export, cfg, device="cuda")
+        scene = train_batch(cfg, seed=31)
+        out = multi_view_forward(exported, scene["images"], scene["cams"], cfg)
+        forward_finite = bool(torch.isfinite(out["depth"]).all())
+        mae = float((out["depth"].cpu() - torch.from_numpy(scene["depth_gt"])).abs().mean())
+        # one loss and backward of the CLI's step on the device's clock, then under the
+        # profiler: how much of the step the device spends in kernels, and how many
+        bf16 = cfg.replace(compute_dtype="bfloat16")
+        exported.requires_grad_(True)
+        loss_and_grads(exported, scene, bf16, TrainConfig())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_and_grads(exported, scene, bf16, TrainConfig())
+        torch.cuda.synchronize()
+        one_step = {"seconds": time.perf_counter() - t0,
+                    **device_kernels(lambda: loss_and_grads(exported, scene, bf16, TrainConfig()))}
+    per_step = TRAIN_LAUNCHES[(False, 0.0)]
+    expected = {"x".join(map(str, TRAIN_SHAPE)): CLI_STEPS * per_step[0]}
+    ok = (run["step"] == CLI_STEPS and len(run["losses"]) == CLI_STEPS // 10
+          and all(math.isfinite(v) for _, v in run["losses"] + resumed["losses"])
+          and (resumed["start_step"], resumed["step"]) == (CLI_STEPS, CLI_STEPS + 5)
+          and cli_launches["forward"]["by_shape"] == expected
+          and cli_launches["backward"]["by_shape"] == expected
+          and all(cli_launches[d]["by_path"]["scalar"] == 0 for d in cli_launches)
+          and forward_finite)
+    emit(phase="train", part="c: cli.train.main", argv=args[:5] + ["--steps", str(CLI_STEPS)],
+         size=TRAIN_SIZE, dtype="bfloat16", losses=run["losses"], first_step_seconds=run["first_step_s"],
+         steps_per_s=run["steps_per_s"], peak_memory_bytes=run["peak_memory_bytes"],
+         launches=cli_launches, expected_by_shape=expected,
+         resumed={"start_step": resumed["start_step"], "step": resumed["step"],
+                  "losses": resumed["losses"], "steps_per_s": resumed["steps_per_s"]},
+         exported_forward={"finite": forward_finite, "mae_sweep_units_vs_gt": mae},
+         loss_and_backward=one_step, ok=ok)
+    if not ok:
+        raise AssertionError("train (c): the CLI run failed; see the line above")
+
+    # (d) one fp32 train step at the flagship size with the spheres weights, remat off, on
+    flag = PipelineConfig()
+    flag_batch = train_batch(flag, seed=21)
+    for remat in (False, True):
+        c = flag.replace(remat=remat)
+        torch.cuda.empty_cache()
+        model = load_model(SPHERES, c, device="cuda")
+        opt = make_optimizer(TrainConfig())
+        state = init_train_state(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, losses = [], []
+        for _ in range(2):          # the first step includes cuDNN's algorithm search
+            S.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, flag_batch, c, TrainConfig(), opt)
+            losses.append(float(metrics["loss"]))
+            seconds.append(time.perf_counter() - t0)
+        launches = launch_record()
+        peak = torch.cuda.max_memory_allocated()
+        ok = all(math.isfinite(v) for v in losses)
+        # a third step under the profiler: device time by kind of kernel
+        split = device_kernels(lambda: train_step(state, flag_batch, c, TrainConfig(), opt), top=12)
+        emit(phase="train", part="d: flagship step", view_num=c.view_num, size=[c.max_h, c.max_w],
+             max_d=c.max_d, dtype="float32", remat=remat, seconds_each=seconds, losses=losses,
+             peak_memory_bytes=peak, launches_per_step=launches, profiled_step=split, ok=ok)
+        if not ok:
+            raise AssertionError("train (d): non-finite loss at the flagship size")
+        del model, state, opt
+    return cli_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--only", nargs="+", choices=["native", "fusion", "eval"], default=None,
+    ap.add_argument("--only", nargs="+", choices=["native", "fusion", "eval", "train"], default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
     args = ap.parse_args()
@@ -1145,10 +1495,12 @@ def main() -> int:
 
     if args.only:
         for phase in args.only:
-            {"native": phase_native, "fusion": lambda: phase_fusion(kind), "eval": phase_eval}[phase]()
+            {"native": phase_native, "fusion": lambda: phase_fusion(kind), "eval": phase_eval,
+             "train": phase_train}[phase]()
         print(smi, flush=True)
         return 1  # a partial run is no pass
     max_err = phase_kernel()
+    max_err_bwd = phase_kernel_backward()
     phase_small()
 
     cfg = PipelineConfig()                              # 5 views, 480x896, D=128, fp32
@@ -1157,6 +1509,7 @@ def main() -> int:
     model = load_model(SPHERES, cfg, device="cuda")
     launches = phase_forward(model, images, cams, cfg)
     totals, bound_by = phase_timing(model, images, cams, cfg, kind)
+    bwd_totals, bwd_bound_by = phase_timing_backward(kind)
     phase_profile(model, images, cams, cfg)
     phase_pair_batch(model, images, cams, cfg)
     del model
@@ -1167,16 +1520,26 @@ def main() -> int:
     phase_fusion(kind)
     torch.cuda.empty_cache()
     eval_launches = phase_eval()
+    torch.cuda.empty_cache()
+    train_launches = phase_train()
 
     print(smi, flush=True)
-    # launches: the flagship forward's and the eval path's, each counted from 0 over its own
-    # run; ms, plain_ms and bound_ms are per flagship forward, as before
+    # launches: the flagship forward's, the eval path's and the train CLI run's, each counted
+    # from 0 over its own run; the forward's ms, plain_ms and bound_ms are per flagship
+    # forward, the backward's per train step of the CLI (its 4 launches at the train shape)
+    train_fwd, train_bwd = train_launches["forward"]["launches"], train_launches["backward"]["launches"]
     emit(kernels=[{
         "name": "softargmin", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
-        "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches + eval_launches,
-        "launches_by_run": {"forward": launches, "eval": eval_launches},
+        "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches + eval_launches + train_fwd,
+        "launches_by_run": {"forward": launches, "eval": eval_launches, "train": train_fwd},
         "max_abs_err": max_err, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"], "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "softargmin_backward", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
+        "replaces": "atvsnet_tpu/ops/softargmin.py:141 (_fused_bwd, XLA formula)",
+        "launches": train_bwd, "launches_by_run": {"train": train_bwd},
+        "max_abs_err": max_err_bwd, "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
+        "bound_ms": bwd_totals["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0

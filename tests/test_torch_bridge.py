@@ -1,6 +1,7 @@
 """The port's package rules and its weight bridge.
 
-  * atvsnet_torch (and chip_smoke.py) import neither jax nor atvsnet_tpu;
+  * atvsnet_torch (and chip_smoke.py) import neither jax nor atvsnet_tpu, nor optax or
+    orbax, and every module of the port is there, the training slice's included;
   * the bridge round-trips the JAX package's init_params bit-exactly for every golden
     config and loads the committed trained weights;
   * the port's copy of the numpy scene generator equals the original.
@@ -54,7 +55,10 @@ def test_no_jax_in_the_port():
         "        'data.cams', 'data.pfm', 'data.mvs_list', 'eval.errors', 'utils.xlsx', 'utils.log',\n"
         "        'fusion.ply', 'fusion.dmb', 'fusion.consistency', 'fusion.fuse', 'native',\n"
         "        'data.gipuma_io', 'data.colmap', 'data.mvs_syn', 'geometry.visual_hull',\n"
-        "        'cli.eval_pointcloud', 'cli.depth_fusion', 'cli.reproduce_pc', 'utils.transfer']\n"
+        "        'cli.eval_pointcloud', 'cli.depth_fusion', 'cli.reproduce_pc', 'utils.transfer',\n"
+        "        'models.train', 'utils.ckpt', 'data.augment', 'data.colmap_train', 'cli.train']\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('optax', 'orbax'))\n"
+        "assert not bad, bad\n"
         "missing = [m for m in need if 'atvsnet_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('atvsnet_torch')]))\n"

@@ -1,5 +1,6 @@
-"""CUDA-only tests of the port: the hand-written soft-argmin kernel on the card, the
-forward, pair_batch and DepthEstimator paths that launch it, and the consistency fusion.
+"""CUDA-only tests of the port: the hand-written soft-argmin kernels (forward and backward)
+on the card, the forward, pair_batch, DepthEstimator and training paths that launch them,
+and the consistency fusion.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
@@ -204,3 +205,141 @@ def test_consistency_fusion_on_the_card(cuda, normals):
     cpu = fuse_depth_maps(depths, images, cams, compact="never", device="cpu", **kw)
     assert dense[0].shape[0] > 5000
     assert abs(dense[0].shape[0] - cpu[0].shape[0]) <= 1e-3 * cpu[0].shape[0]
+
+
+# The backward kernel against the closed-form plain backward on the same inputs: fp32 at
+# rtol 1e-5 (ex2.approx and the order of two products), plus an atol of 1e-6 of the largest
+# gradient for values that the kernel's flush-to-zero exponent makes 0; bf16 within one
+# bf16 ulp (both round the same fp32 formula, which may straddle a rounding boundary).
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _backward_inputs(shape, dtype, device, transform=None):
+    cost, ds, di = _inputs(shape, dtype, device)
+    if transform is not None:
+        B, D = shape[:2]
+        flat = cost.view(B, D, -1)
+        if transform == "first8":
+            flat[:, :8, ::5] = torch.inf
+        elif transform == "all":
+            flat[:, :, 0] = torch.inf
+    depth = S.softargmin_torch(cost, ds, di)
+    g = torch.Generator(device=device).manual_seed(1)
+    grad = torch.randn(depth.shape, device=device, generator=g)
+    return cost, ds, di, depth, grad
+
+
+def _backward_and_compare(cost, ds, di, depth, grad, path):
+    before, by_path = S.softargmin_backward_cuda.launches, dict(S.softargmin_backward_cuda.path_launches)
+    got = S.softargmin_backward_cuda(cost, ds, di, depth, grad)
+    torch.cuda.synchronize()
+    assert S.softargmin_backward_cuda.launches == before + 1
+    by_path[path] += 1
+    assert S.softargmin_backward_cuda.path_launches == by_path
+    assert got.dtype == cost.dtype and got.shape == cost.shape
+    ref = S.softargmin_backward_torch(cost, ds, di, depth, grad)
+    scale = float(ref.float().nan_to_num(0.0).abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=BWD_TOL[cost.dtype],
+                               atol=1e-6 * scale, equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("shape,dtype,path", [((1, 32, 32, 40), torch.float32, "aligned"),
+                                              ((1, 32, 32, 40), torch.bfloat16, "aligned"),
+                                              ((1, 128, 120, 224), torch.float32, "aligned"),
+                                              ((2, 16, 7, 4095), torch.float32, "scalar"),
+                                              ((1, 32, 5, 7), torch.bfloat16, "scalar"),
+                                              ((2, 1, 6, 8), torch.float32, "aligned"),
+                                              ((1, 130, 6, 40), torch.float32, "aligned"),
+                                              ((1, 130, 6, 40), torch.bfloat16, "aligned"),
+                                              ((3, 48, 7, 9), torch.float32, "scalar")])
+def test_backward_kernel_matches_plain(cuda, shape, dtype, path):
+    _backward_and_compare(*_backward_inputs(shape, dtype, cuda), path)
+
+
+@pytest.mark.parametrize("transform,path", [("first8", "aligned"), ("all", "aligned")])
+def test_backward_inf_planes(cuda, transform, path):
+    """+inf planes get gradient 0; a pixel whose planes are all +inf gets NaN in every
+    plane, as the plain version's softmax gives it."""
+    inputs = _backward_inputs((1, 128, 24, 32), torch.float32, cuda, transform)
+    got = _backward_and_compare(*inputs, path)
+    cost = inputs[0]
+    if transform == "first8":
+        assert bool((got[torch.isinf(cost)] == 0).all()) and not bool(torch.isnan(got).any())
+    else:
+        assert bool(torch.isnan(got[:, :, 0, 0]).all())
+        assert int(torch.isnan(got).sum()) == cost.shape[1]
+
+
+def test_backward_misaligned_pointer_takes_the_scalar_kernel(cuda):
+    cost, ds, di, depth, grad = _backward_inputs((1, 128, 24, 32), torch.float32, cuda)
+    flat = torch.empty(cost.numel() + 1, device=cuda)
+    view = flat[1:].view(cost.shape)
+    view.copy_(cost)
+    got = _backward_and_compare(view, ds, di, depth, grad, "scalar")
+    torch.testing.assert_close(got, _backward_and_compare(cost, ds, di, depth, grad, "aligned"),
+                               rtol=1e-5, atol=1e-9)
+
+
+def test_backward_rejects_what_it_cannot_take(cuda):
+    cost, ds, di, depth, grad = _backward_inputs((1, 8, 4, 6), torch.float32, cuda)
+    with pytest.raises(ValueError, match="grad"):
+        S.softargmin_backward_cuda(cost, ds, di, depth, grad.double())
+    with pytest.raises(ValueError, match="depth"):
+        S.softargmin_backward_cuda(cost, ds, di, depth.cpu(), grad)
+
+
+def test_autograd_routes_through_both_kernels(cuda):
+    """Under grad, softargmin(impl="auto") on the card returns a tensor with a grad_fn whose
+    backward launches the backward kernel; under no_grad it launches the forward alone.
+    The gradient is autograd's of the plain version (atol 1e-5 of max|g| * max|sweep|:
+    that formula subtracts two values of that size)."""
+    cost, ds, di, _, grad = _backward_inputs((1, 32, 32, 40), torch.float32, cuda)
+    S.reset_launch_counts()
+    with torch.no_grad():
+        S.softargmin(cost, 32, ds, di)
+    assert (S.softargmin_cuda.launches, S.softargmin_backward_cuda.launches) == (1, 0)
+    leaf = cost.clone().requires_grad_(True)
+    depth = S.softargmin(leaf, 32, ds, di)
+    assert depth.grad_fn is not None
+    depth.backward(grad)
+    assert (S.softargmin_cuda.launches, S.softargmin_backward_cuda.launches) == (2, 1)
+    ref = cost.clone().requires_grad_(True)
+    S.softargmin_torch(ref, ds, di).backward(grad)
+    sweep_max = float(S.sweep(32, ds, di).abs().max())
+    torch.testing.assert_close(leaf.grad, ref.grad, rtol=1e-5,
+                               atol=1e-5 * float(grad.abs().max()) * sweep_max)
+    with pytest.raises(ValueError, match="cost only"):
+        S.softargmin(cost.clone().requires_grad_(True), 32, ds.clone().requires_grad_(True), di)
+
+
+@pytest.mark.parametrize("remat,conf,launches", [(False, 0.0, (4, 4)), (True, 0.0, (6, 4)),
+                                                 (False, 0.5, (3, 3)), (True, 0.5, (5, 3))])
+def test_training_loss_launches_and_matches_plain(cuda, remat, conf, launches):
+    """One training loss and backward at 3 views, 32x32, D=8 through the kernels: per pair
+    one stage-1 soft-argmin, AAM1's, and the final depth's unless the confidence term sends
+    it to the plain formula; remat recomputes stage 1 in the backward. Loss and gradients
+    as impl="torch" under deterministic cuDNN (rtol 1e-4; the global gradient within 1e-3)."""
+    from atvsnet_torch.config import TrainConfig
+    from atvsnet_torch.data.synthetic import render_multiplane_scene
+    from atvsnet_torch.models.train import loss_and_grads
+
+    cfg = PipelineConfig(view_num=3, max_d=8, max_h=32, max_w=32, remat=remat)
+    tcfg = TrainConfig(loss_weight_confidence=conf)
+    scene = render_multiplane_scene(view_num=3, H=32, W=32, D=8, seed=3, num_spheres=2)
+    model = init_model(cfg, device=cuda).requires_grad_(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        S.reset_launch_counts()
+        loss, _, grads = loss_and_grads(model, scene, cfg, tcfg)
+        torch.cuda.synchronize()
+        assert (S.softargmin_cuda.launches, S.softargmin_backward_cuda.launches) == launches
+        assert S.softargmin_cuda.shape_launches == {(1, 8, 8, 8): launches[0]}
+        ref_loss, _, ref = loss_and_grads(model, scene, cfg.replace(softargmin_impl="torch"), tcfg)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=0)
+    num = sum(float((grads[n] - ref[n]).square().sum()) for n in ref)
+    den = sum(float(ref[n].square().sum()) for n in ref)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert (num / den) ** 0.5 < 1e-3

@@ -265,4 +265,6 @@ def test_exr_reader_raises_ioerror_naming_the_path(tmp_path):
         got = tsyn._read_exr_depth(str(tmp_path / "depth.exr"))
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got, depth)
-    assert not hasattr(tsyn, "load_training_sample")        # comes with the training slice
+    # the training batch reader came with the training slice; tests/test_torch_train_data.py
+    # holds it against the JAX package
+    assert callable(tsyn.load_training_sample)
