@@ -24,6 +24,10 @@ Entry points:
   cli.train, models.train         python -m atvsnet_torch.cli.train: training on rendered
                                   scenes, MVS-Synth or ETH3D; the losses, the optimizer,
                                   train_step; utils.ckpt: train-state checkpoints
+  parallel.mesh.make_mesh, parallel.pipeline.multi_view_forward_spmd / sharded_forward
+                                  the ('data', 'view') mesh over torch.distributed, one
+                                  process per device; DepthEstimator, run_eval_pc and
+                                  models.train take it as `mesh`
   params.load_model / init_model / save_params
                                   weights from and to the JAX package's .npz
   data.preprocess, data.cams, data.pfm, data.mvs_list, eval.errors

@@ -3,7 +3,7 @@ reference atvsnet/eval_pointcloud.py).
 
     python -m atvsnet_torch.cli.eval_pointcloud --data_root ../data --savepath ./eval_out \
         [--scenes lakeside sand_box ...] [--params model.npz] [--view_num 8] \
-        [--batch 1] [--gt_range] [--device cpu]
+        [--batch 1] [--mesh data=2,view=4] [--gt_range] [--device cpu]
 
 Per scene: parse pair.txt, per reference image run the N-view forward, write %08d.pfm
 depth, %08d_prob.pfm confidence, ref jpg + cam txt, a viridis png, and zz_runtime.txt.
@@ -22,6 +22,16 @@ How the work is laid out:
 
 --batch B stacks B distinct reference images into one (B, N, H, W, 3) forward (pure data
 batching; the reference loops B=1 always).
+
+--mesh data=N[,view=M] runs the forward over a mesh of N * M processes (parallel.mesh),
+one per device, started by torchrun:
+
+    torchrun --nproc_per_node=2 -m atvsnet_torch.cli.eval_pointcloud --mesh data=2 ...
+
+Each batch (rounded up to a multiple of N) is split over 'data': a data rank loads and
+runs its own rows, and its view pairs are split over 'view'. Only view rank 0 of each
+data group writes its rows' files, which are the files of an unsharded run; the call
+returns on every rank once all of them are written.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from atvsnet_torch import resolve_device
 from atvsnet_torch.cli.example import save_colormap
@@ -46,6 +57,7 @@ from atvsnet_torch.data.pfm import save_pfm
 from atvsnet_torch.data.preprocess import load_mvs_sample
 from atvsnet_torch.models.atvsnet import sweep_to_depth
 from atvsnet_torch.params import init_model, load_model
+from atvsnet_torch.parallel.mesh import block, make_mesh, parse_mesh_spec
 from atvsnet_torch.serving import packed_forward, unpack_rows
 from atvsnet_torch.utils import log
 from atvsnet_torch.utils.transfer import finish_download
@@ -101,14 +113,25 @@ def run_eval_pc(
     gt_range: bool = False,
     full_viz: bool = False,
     device=None,
+    mesh: str | None = None,
 ) -> dict:
     """Depth, confidence, reference jpg, cam and png of every reference image of `scenes`
     under <data_root>/eth3d/, written to <savepath>/<scene>/depths_atvsnet/. Runs on
     `device` (CUDA when None). Returns the run's own clock: seconds the main thread was
     blocked on loading, queueing the forwards, waiting for them and flushing the writes;
     seconds of each batch from before its upload until its download had landed; and each
-    scene's wall seconds and maps per second.
+    scene's wall seconds and maps per second. `mesh`: a spec such as "data=2,view=2" (see
+    the module docstring); every rank of the mesh calls run_eval_pc alike.
     """
+    if mesh:
+        n_data, n_view = parse_mesh_spec(mesh)
+        mesh = make_mesh(n_data, n_view, device=device)
+        device = mesh.device
+        if batch % n_data:
+            batch = n_data * max(1, batch // n_data)
+        log.info(f"mesh (data={n_data}, view={n_view}), batch={batch}")
+    else:
+        mesh = None
     device = resolve_device(device)
     on_gpu = device.type == "cuda"
     max_h = (max_h // 32) * 32
@@ -161,19 +184,23 @@ def run_eval_pc(
             inverse_depth=cfg.inverse_depth, gt_range=gt_range, center=False,
         )
 
+    # this rank's rows of each batch; only view rank 0 of each data group writes
+    rows = range(batch) if mesh is None else range(batch)[block(batch, mesh.n_data, mesh.data_rank)]
+    writer = mesh is None or mesh.view_rank == 0
+
     def _load_chunk(paths_chunk):
-        """Decode+preprocess a whole batch off the main thread, which then only touches
-        ready arrays."""
-        if sample_pool is not None:
-            samples = list(sample_pool.map(_load, paths_chunk))
-        else:
-            samples = [_load(p) for p in paths_chunk]
-        n_real = len(samples)
-        while len(samples) < batch:  # tail: pad with the last sample
-            samples.append(samples[-1])
+        """Decode+preprocess this rank's rows of a batch off the main thread, which then
+        only touches ready arrays. The tail pads with the last sample."""
+        n_real = len(paths_chunk)
+        mine = [min(r, n_real - 1) for r in rows]
+        unique = sorted(set(mine))
+        paths = [paths_chunk[i] for i in unique]
+        loaded = list(sample_pool.map(_load, paths)) if sample_pool is not None else [
+            _load(p) for p in paths]
+        samples = [loaded[unique.index(i)] for i in mine]
         images = np.concatenate([s["images"] for s in samples], axis=0)
         cams = np.concatenate([s["cams"] for s in samples], axis=0)
-        return (images, cams), samples, n_real
+        return (images, cams), samples, sum(r < n_real for r in rows)
 
     # ---- one chunk stream across ALL scenes. Per-scene queues stall the loop at
     # every scene boundary (the first chunk of a scene has no decode lead time);
@@ -233,7 +260,7 @@ def run_eval_pc(
         """Wait for a queued batch's download and hand its writes to the pool."""
         t0 = time.perf_counter()
         si, download, samples, n_real, (began, ended) = p
-        maps = unpack_rows(finish_download(*download), names, shapes)
+        maps = unpack_rows(finish_download(*download), names, shapes)[rows.start:]
         if on_gpu:
             ended.synchronize()
             batch_seconds.append(began.elapsed_time(ended) / 1e3)
@@ -241,7 +268,7 @@ def run_eval_pc(
             batch_seconds.append(ended - began)
         blocked["wait_forward_s"] += time.perf_counter() - t0
         meta = scene_meta[si]
-        for b in range(n_real):
+        for b in range(n_real if writer else 0):
             meta["write_futures"].append(write_pool.submit(_write_one, si, samples[b], maps[b]))
         meta["done"] += n_real
         if meta["done"] % 10 < n_real or meta["done"] == meta["n"]:
@@ -260,7 +287,7 @@ def run_eval_pc(
             t0 = time.perf_counter()
             began = _clock()
             download = packed_forward(model, cfg, host_images, host_cams, device, False,
-                                      maps_of, out_prob_map=True, upsample=full_viz)
+                                      maps_of, mesh, out_prob_map=True, upsample=full_viz)
             ended = _clock()
             blocked["queue_forward_s"] += time.perf_counter() - t0
             if pending is not None:
@@ -272,11 +299,13 @@ def run_eval_pc(
         for meta in scene_meta:
             for f in meta["write_futures"]:
                 f.result()  # surface writer exceptions
+        if mesh is not None:
+            dist.barrier()  # every rank's files are written
         blocked["write_flush_s"] += time.perf_counter() - t0
 
         scene_stats = {}
         for meta in scene_meta:
-            if meta["start"] is None:
+            if meta["start"] is None or (mesh is not None and dist.get_rank() != 0):
                 continue
             scene_runtime = max(meta["end"], meta["start"]) - meta["start"]
             with open(
@@ -326,6 +355,9 @@ def main() -> None:
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--batch", type=int, default=1,
                     help="ref images per forward (pure data batching)")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh spec, e.g. data=2,view=4, under torchrun (shards the batch over "
+                         "'data' and view pairs over 'view')")
     ap.add_argument("--load_workers", type=int, default=6)
     ap.add_argument("--write_workers", type=int, default=2)
     ap.add_argument("--gt_range", action="store_true",
@@ -342,7 +374,7 @@ def main() -> None:
         args.data_root, args.savepath, args.scenes,
         view_num=args.view_num, max_d=args.max_d, max_w=args.max_w, max_h=args.max_h,
         params_path=args.params, compute_dtype=args.dtype,
-        batch=args.batch,
+        batch=args.batch, mesh=args.mesh,
         load_workers=args.load_workers, write_workers=args.write_workers,
         gt_range=args.gt_range, full_viz=args.full_viz, device=args.device,
     )

@@ -131,3 +131,21 @@ def prob2depth_upsample(prob_volume: torch.Tensor, depth_num: int, depth_start: 
                 prob, torch.cat([o[1] for o in outs], dim=1))
     depth = prob2depth(prob_volume, depth_num, depth_start, depth_interval, impl=impl)
     return depth, torch.cat(outs, dim=1)
+
+
+def final_depths(prob_agg2: torch.Tensor, cfg, depth_start: torch.Tensor,
+                 depth_interval: torch.Tensor, out_prob_map: bool, upsample: bool) -> dict:
+    """Stage 4's soft-argmin under a PipelineConfig `cfg`: depth (B, h, w, 1) in sweep
+    space, with upsample depth_up (B, 4h, 4w, 1), with out_prob_map confidence (and
+    confidence_up)."""
+    D, impl = cfg.max_d, cfg.softargmin_impl
+    if upsample:
+        res = prob2depth_upsample(prob_agg2, D, depth_start, depth_interval,
+                                  out_prob_map=out_prob_map, impl=impl)
+        keys = ("depth", "depth_up", "confidence", "confidence_up") if out_prob_map else (
+            "depth", "depth_up")
+        return dict(zip(keys, res))
+    if out_prob_map:
+        depth, conf = prob2depth(prob_agg2, D, depth_start, depth_interval, True, impl=impl)
+        return {"depth": depth, "confidence": conf}
+    return {"depth": prob2depth(prob_agg2, D, depth_start, depth_interval, impl=impl)}

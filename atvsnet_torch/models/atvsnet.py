@@ -14,10 +14,9 @@ convolutions, more memory.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from atvsnet_torch.config import PipelineConfig
-from atvsnet_torch.geometry.depth_regression import prob2depth, prob2depth_upsample
+from atvsnet_torch.geometry.depth_regression import final_depths, prob2depth
 from atvsnet_torch.models.tvsnet import (
     ATVSNet,
     aam_aggregate_stacked,
@@ -28,6 +27,7 @@ from atvsnet_torch.models.tvsnet import (
     tvsnet_base,
     tvsnet_refine,
 )
+from atvsnet_torch.parallel.pipeline import multi_view_forward_spmd
 
 
 @torch.no_grad()
@@ -95,7 +95,7 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
     # ---- stage 4: AAM2 + (upsampled) soft-argmin ----
     cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2)
     del refined_costs
-    final = _final_depths(aam_output_conv(model, cost_agg2, stage=2), cfg, depth_start,
+    final = final_depths(aam_output_conv(model, cost_agg2, stage=2), cfg, depth_start,
                           depth_interval, out_prob_map, upsample)
 
     out = {
@@ -111,93 +111,12 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
     return out
 
 
-def _final_depths(prob_agg2, cfg: PipelineConfig, depth_start, depth_interval,
-                  out_prob_map: bool, upsample: bool) -> dict:
-    """Stage 4's soft-argmin: depth (B, h, w, 1) in sweep space, with upsample depth_up
-    (B, 4h, 4w, 1), with out_prob_map confidence (and confidence_up)."""
-    D, impl = cfg.max_d, cfg.softargmin_impl
-    if upsample:
-        res = prob2depth_upsample(prob_agg2, D, depth_start, depth_interval,
-                                  out_prob_map=out_prob_map, impl=impl)
-        keys = ("depth", "depth_up", "confidence", "confidence_up") if out_prob_map else (
-            "depth", "depth_up")
-        return dict(zip(keys, res))
-    if out_prob_map:
-        depth, conf = prob2depth(prob_agg2, D, depth_start, depth_interval, True, impl=impl)
-        return {"depth": depth, "confidence": conf}
-    return {"depth": prob2depth(prob_agg2, D, depth_start, depth_interval, impl=impl)}
-
-
 def multi_view_forward_train(model: ATVSNet, images, cams, cfg: PipelineConfig,
                              out_prob_map: bool = False, upsample: bool = False) -> dict:
-    """The forward that training differentiates: images (B, N, H, W, 3), cams
-    (B, N, 2, 4, 4) -> depth_agg_initial, depth_views (P, B, h, w, 1),
-    refined_prob_volumes and depth (+ confidence with out_prob_map, + depth_up and
-    confidence_up with upsample), with autograd recording as the caller has it.
-
-    The math of multi_view_forward, arranged as the JAX training forward arranges it:
-      * stage 1 leaves out each pair's reference-direction depth, which no loss reads
-        (XLA drops it there): one soft-argmin per pair, not two;
-      * stages 1 and 3 run pair by pair whatever cfg.pair_batch says;
-      * cfg.remat wraps each pair's stage 1 and each pair's refinement in
-        torch.utils.checkpoint (jax.checkpoint there): their activations are recomputed
-        in the backward, and so are stage 1's soft-argmins.
-    """
-    images, cams = prepare_inputs(model, images, cams, cfg)
-    N = images.shape[1]
-    if N != cfg.view_num or N <= 2:
-        raise ValueError(f"multi_view_forward_train needs view_num > 2 views, got {N} "
-                         f"(cfg.view_num={cfg.view_num})")
-    D = cfg.max_d
-    depth_start = cams[:, 0, 1, 3, 0]
-    depth_interval = cams[:, 0, 1, 3, 1]
-    cfg_pair = cfg.replace(pair_batch=False)
-
-    features = extract_features(model, images, cfg)
-    shallow = extract_features(model, images, cfg, shallow=True)
-    ref_feature, ref_cam, shallow_ref = features[:, 0], cams[:, 0], shallow[:, 0]
-
-    def remat(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if cfg.remat else fn(*args)
-
-    # ---- stage 1: per pair, the swapped depth only ----
-    def base_pair(view_feature, view_cam):
-        out = tvsnet_base(model, ref_feature, view_feature, ref_cam, view_cam, cfg_pair,
-                          depth_start, depth_interval, ref_depth=False)
-        return out.filtered_cost, out.depth_view
-
-    pairs = [remat(base_pair, features[:, v], cams[:, v]) for v in range(1, N)]
-    filtered_costs = torch.stack([c for c, _ in pairs])   # (P, B, D, h, w, C)
-    depth_views = torch.stack([d for _, d in pairs])      # (P, B, h, w, 1)
-    del pairs
-
-    # ---- stage 2: AAM1 ----
-    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1)
-    del filtered_costs
-    prob_agg = aam_output_conv(model, cost_agg, stage=1)
-    depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=cfg.softargmin_impl)
-
-    # ---- stage 3: per-pair refinement ----
-    hull_cam = cams[:, 1] if cfg.reference_compat else None
-
-    def refine_pair(depth_view, view_cam, shallow_view):
-        return tvsnet_refine(model, depth_agg, depth_view, prob_agg, cost_agg, ref_cam,
-                             view_cam, shallow_ref, shallow_view, cfg, depth_start,
-                             depth_interval, hull_view_cam=hull_cam)
-
-    refined = [remat(refine_pair, depth_views[v - 1], cams[:, v], shallow[:, v])
-               for v in range(1, N)]
-    refined_probs = torch.stack([p for p, _ in refined])
-    refined_costs = torch.stack([c for _, c in refined])
-    del refined
-
-    # ---- stage 4: AAM2 + soft-argmin ----
-    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2)
-    del refined_costs
-    final = _final_depths(aam_output_conv(model, cost_agg2, stage=2), cfg, depth_start,
-                          depth_interval, out_prob_map, upsample)
-    return {"depth_agg_initial": depth_agg, "depth_views": depth_views,
-            "refined_prob_volumes": refined_probs, **final}
+    """The forward that training differentiates, on one process:
+    parallel.pipeline.multi_view_forward_spmd without a mesh (see there)."""
+    return multi_view_forward_spmd(model, images, cams, cfg, out_prob_map=out_prob_map,
+                                   upsample=upsample)
 
 
 def refine_pairs_batched(model: ATVSNet, depth_agg, depth_views, prob_agg, cams, shallow,

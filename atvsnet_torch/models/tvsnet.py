@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as tnn
 
 from atvsnet_torch import resolve_device
@@ -224,10 +225,12 @@ def tvsnet_refine(model: ATVSNet, depth_ref, depth_view, prob_vol, filtered_cost
             filtered_cost + cost_residual.to(filtered_cost.dtype))
 
 
-def aam_aggregate_stacked(model: ATVSNet, cost_volumes: torch.Tensor, stage: int) -> torch.Tensor:
-    """AAM over the view-leading (P, B, D, h, w, C) stack; stage 1 = AAM1, 2 = AAM2."""
+def aam_aggregate_stacked(model: ATVSNet, cost_volumes: torch.Tensor, stage: int,
+                          group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """AAM over the view-leading (P, B, D, h, w, C) stack; stage 1 = AAM1, 2 = AAM2. With a
+    'view' group, the stack holds this rank's pairs and AAM runs over the group's."""
     return attention_aggregate_stacked(model.aam1_att if stage == 1 else model.aam2_att,
-                                       cost_volumes)
+                                       cost_volumes, group)
 
 
 def aam_output_conv(model: ATVSNet, agg_cost: torch.Tensor, stage: int) -> torch.Tensor:

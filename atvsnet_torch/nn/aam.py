@@ -7,6 +7,11 @@ For each view slice x_i, with a per-view UNIQUE kernel and a SHARED kernel,
           + sum_j relu(conv3d(x_j, W_shared))
 
 then score = softmax over views of a (in fp32) and output = sum_i score_i * x_i.
+
+With the pairs split over the ranks of a 'view' group (parallel.mesh), every sum over
+views is a local sum followed by an all-reduce over the group: the shared-weight sum,
+the softmax's max and normaliser, and the weighted sum. Those that carry gradient go
+through torch.distributed.nn's all-reduce, whose backward all-reduces the gradient.
 """
 
 from __future__ import annotations
@@ -14,9 +19,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as tnn
 
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.parallel.mesh import all_reduce_sum
 
 
 class Attention(tnn.Module):
@@ -36,17 +43,32 @@ class OutputConv(tnn.Module):
         self.add_module(name, L.Conv(3, channels, 1, nd=3, generator=generator))
 
 
-def attention_aggregate_stacked(att: Attention, x: torch.Tensor) -> torch.Tensor:
-    """View-leading stack (N, B, D, h, w, C) -> (B, D, h, w, C)."""
+def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
+                                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """View-leading stack (N, B, D, h, w, C) -> (B, D, h, w, C).
+
+    With a `group`, x holds this rank's views and the result is over the group's views.
+    """
     N, B, C = x.shape[0], x.shape[1], x.shape[-1]
     xv = x.reshape((N * B,) + x.shape[2:])
     # [unique | shared] stacked on the output-channel axis: one conv for both
     w_cat = torch.cat([att.weight_unique, att.weight_shared], dim=0)
     both = L.conv(xv, w_cat, relu=True).reshape(x.shape[:-1] + (2 * C,))
     unique, shared = both[..., :C], both[..., C:]
-    act = (unique - shared + shared.sum(dim=0, keepdim=True)).to(torch.float32)
-    score = torch.softmax(act, dim=0)
-    return torch.sum(score.to(x.dtype) * x, dim=0)
+    if group is None:
+        act = (unique - shared + shared.sum(dim=0, keepdim=True)).to(torch.float32)
+        score = torch.softmax(act, dim=0)
+        return torch.sum(score.to(x.dtype) * x, dim=0)
+    # the sums accumulate in fp32 and round once, as the local ones above do
+    f32 = torch.float32
+    shared_sum = all_reduce_sum(shared.sum(dim=0, keepdim=True, dtype=f32), group)
+    act = (unique - shared + shared_sum.to(shared.dtype)).to(f32)
+    # the max only steadies the exponent: the softmax does not depend on it
+    m = act.detach().amax(dim=0, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(act - m)
+    score = e / all_reduce_sum(e.sum(dim=0, keepdim=True), group)
+    return all_reduce_sum(torch.sum(score.to(x.dtype) * x, dim=0, dtype=f32), group).to(x.dtype)
 
 
 def output_conv(module: OutputConv, name: str, cost_volume: torch.Tensor) -> torch.Tensor:

@@ -23,12 +23,17 @@ single-request result up to the convolution library's choice of algorithm per ba
 
 The network is fully convolutional (no shape-dependent weights), so all buckets share the
 one model. It runs on CUDA unless the caller passes device="cpu".
+
+With a mesh (parallel.mesh: a spec such as "data=2,view=2", or a built Mesh) every rank of
+the mesh holds the model and calls predict / predict_many with the same requests; the
+batch is split over 'data' and the view pairs over 'view' (parallel.pipeline), and every
+rank returns the same results.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -41,6 +46,8 @@ from atvsnet_torch.data.preprocess import prepare_mvs_sample
 from atvsnet_torch.models.atvsnet import center_images, multi_view_forward, sweep_to_depth
 from atvsnet_torch.models.tvsnet import two_view_forward
 from atvsnet_torch.params import init_model, load_model
+from atvsnet_torch.parallel.mesh import Mesh, gather_blocks, make_mesh, parse_mesh_spec
+from atvsnet_torch.parallel.pipeline import forward_rows
 from atvsnet_torch.utils.transfer import finish_download, start_download
 
 # a bucket may override anything but the widths the shared model was built with
@@ -49,7 +56,7 @@ _WIDTH_FIELDS = ("fem_base_filter", "crm_base_filter", "shallow_base_filter", "r
 
 @torch.no_grad()
 def packed_forward(model, c: PipelineConfig, images: np.ndarray, cams: np.ndarray, device,
-                   centered: bool, maps_of, **forward_kw):
+                   centered: bool, maps_of, mesh: Optional[Mesh] = None, **forward_kw):
     """Upload, normalize on the device (unless `centered`), forward, and start the download
     of ONE flat fp32 row per sample that holds the maps `maps_of(out)` picks, one after the
     other. DepthEstimator and cli.eval_pointcloud both run their forwards through here.
@@ -58,16 +65,23 @@ def packed_forward(model, c: PipelineConfig, images: np.ndarray, cams: np.ndarra
     forward_kw goes to multi_view_forward (two_view_forward takes none). Returns
     utils.transfer.start_download's (host tensor (B, n), event): the caller waits with
     finish_download, at once or after it has queued more work.
+
+    With a mesh, images and cams are this rank's rows of the batch (mesh.data_rows), the
+    N-view forward is parallel.pipeline's and the two-view forward runs the rows alone;
+    the rows of every data rank come down, in batch order, on every rank.
     """
     x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
     x = x.to(torch.float32) if centered else center_images(x)
     if c.view_num == 2:
         out = two_view_forward(model, x, cams, c)
-    else:
+    elif mesh is None:
         out = multi_view_forward(model, x, cams, c, **forward_kw)
+    else:
+        out = forward_rows(model, x, cams, c, mesh, **forward_kw)
     parts = maps_of(out)
     b = parts[0].shape[0]
-    return start_download(torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1))
+    packed = torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1)
+    return start_download(packed if mesh is None else gather_blocks(packed, mesh.data_group))
 
 
 def unpack_rows(packed: np.ndarray, names, shapes) -> list[dict]:
@@ -100,12 +114,18 @@ class DepthEstimator:
         seed: int = 0,
         with_confidence: bool = True,
         device=None,
+        mesh: Union[str, Mesh, None] = None,
     ):
         """params: a JAX-layout parameter tree (nested or flat '/'-keyed); params_path: the
-        .npz of such a tree; neither: random weights from `seed`. device: CUDA when None."""
+        .npz of such a tree; neither: random weights from `seed`. device: CUDA when None.
+        mesh: a spec ("data=2,view=4") built with parallel.mesh.make_mesh on `device`, or a
+        built Mesh, whose device the model then lives on."""
         self.cfg = cfg or PipelineConfig()
         self.with_confidence = with_confidence and self.cfg.view_num > 2
-        self.device = resolve_device(device)
+        if isinstance(mesh, str):
+            mesh = make_mesh(*parse_mesh_spec(mesh), device=device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         if params is not None:
             self.model = load_model(params, self.cfg, self.device)
         elif params_path:
@@ -158,7 +178,8 @@ class DepthEstimator:
         """Upload, normalize on the device (unless `centered`), forward, metric conversion,
         and ONE flat fp32 row per sample brought down with one copy into pinned memory.
 
-        images (B, N, H, W, 3) of the bucket's size, uint8 or float; cams (B, N, 2, 4, 4).
+        images (B, N, H, W, 3) of the bucket's size, uint8 or float; cams (B, N, 2, 4, 4);
+        with a mesh, B is a multiple of the 'data' extent and each rank runs its rows.
         Returns the per-sample maps (numpy views into the downloaded row) and the seconds
         from before the upload until the download has finished.
         """
@@ -169,9 +190,12 @@ class DepthEstimator:
                      sweep_to_depth(out["depth_up"], c.inverse_depth)]
             return parts + ([out["confidence"], out["confidence_up"]] if with_conf else [])
 
+        if self.mesh is not None:
+            images, cams = self.mesh.data_rows(images), self.mesh.data_rows(cams)
         t0 = time.perf_counter()
         packed = finish_download(*packed_forward(
-            self.model, c, images, cams, self.device, centered, maps_of, out_prob_map=with_conf))
+            self.model, c, images, cams, self.device, centered, maps_of, self.mesh,
+            out_prob_map=with_conf))
         runtime = time.perf_counter() - t0
         return unpack_rows(packed, *self._map_layout(c)), runtime
 
@@ -200,6 +224,16 @@ class DepthEstimator:
             center=False,
         )
 
+    def _data_extent(self) -> int:
+        """Size of the mesh's 'data' axis (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.n_data
+
+    def _tile(self, x: np.ndarray) -> np.ndarray:
+        """A one-sample batch repeated to the 'data' extent, so that every data rank has a
+        row; sample 0 is read back."""
+        nd = self._data_extent()
+        return x if nd == 1 else np.concatenate([x] * nd, axis=0)
+
     # ---- inference -------------------------------------------------------
 
     def warmup(self, all_buckets: bool = False, include_pre: bool = False) -> float:
@@ -218,6 +252,7 @@ class DepthEstimator:
             )
             cam[1, 3] = (0.4, 0.6 / c.max_d, c.max_d, 1.0)
             cams = np.broadcast_to(cam, (1, c.view_num, 2, 4, 4)).copy()
+            images, cams = self._tile(images), self._tile(cams)
             self._forward(c, images, cams, centered=False)
             if include_pre:
                 self._forward(c, images.astype(np.float32), cams, centered=True)
@@ -245,6 +280,7 @@ class DepthEstimator:
           bucket         (max_h, max_w) of the bucket that served the request
         preprocessed=True: the images are already normalized and of a bucket's exact
         size, and the cams already carry cost-volume intrinsics and the sweep row.
+        With a mesh, every rank calls it with the same request and gets the result.
         """
         h, w = images[0].shape[:2]
         c = self._route(h, w)
@@ -277,7 +313,8 @@ class DepthEstimator:
             }
         else:
             batch = self._prepare(c, images, cams)
-        maps, runtime = self._forward(c, batch["images"], batch["cams"], centered=preprocessed)
+        maps, runtime = self._forward(c, self._tile(batch["images"]), self._tile(batch["cams"]),
+                                      centered=preprocessed)
         return self._result(c, maps[0], batch["valid_hw"], runtime)
 
     def predict_many(
@@ -289,7 +326,9 @@ class DepthEstimator:
         All requests route to a single bucket (the smallest fitting the largest
         request). Each request may have its own resolution and view count (per-sample
         preparation pads exactly like predict). Returns one predict()-shaped dict per
-        request; runtime_s on each is the whole batch's time.
+        request; runtime_s on each is the whole batch's time. With a mesh, every rank calls
+        it with the same requests and gets every result: the batch is padded to a multiple
+        of the 'data' extent by repeating the last request and split over 'data'.
         """
         if not requests:
             return []
@@ -297,8 +336,9 @@ class DepthEstimator:
         w = max(imgs[0].shape[1] for imgs, _ in requests)
         c = self._route(h, w)
         prepared = [self._prepare(c, imgs, cms) for imgs, cms in requests]
-        images = np.concatenate([b["images"] for b in prepared], axis=0)
-        cams = np.concatenate([b["cams"] for b in prepared], axis=0)
+        padded = prepared + prepared[-1:] * (-len(prepared) % self._data_extent())
+        images = np.concatenate([b["images"] for b in padded], axis=0)
+        cams = np.concatenate([b["cams"] for b in padded], axis=0)
         all_maps, runtime = self._forward(c, images, cams, centered=False)
         return [self._result(c, maps, b["valid_hw"], runtime)
                 for maps, b in zip(all_maps, prepared)]

@@ -66,10 +66,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 first step's seconds, peak memory, launches, --resume, the exported
                 params load and run; (d) one fp32 step at 5 views, 480x896, D=128 with
                 the spheres weights, remat off and on: seconds and peak memory
+ 15. parallel   the multi-device layer (atvsnet_torch.parallel), its ranks child processes:
+                (a) a world of 2 ranks sharing cuda:0 over gloo (NCCL takes one rank per
+                card) runs the flagship forward (5 views, 480x896, D=128, fp32, spheres
+                weights, deterministic cuDNN) on a view=2 mesh and on a data=2 mesh (a
+                batch of 2), each held against the forward in one process within the
+                BATCH_MEAN_DIFF bounds; soft-argmin launches per rank and shape, seconds
+                and peak memory per rank; (b) the sharded train step at the train size on
+                the same world, data=2 (the two rows' ground truth of different density)
+                and view=2, against the step in one process (loss rtol 1e-4, gradients 5e-3);
+                (c) a world of torch.cuda.device_count() ranks, one per card, over NCCL:
+                the flagship forward on an auto_mesh_shape(count, 4) mesh, held as in (a);
+                (d) the eval CLI under torchrun, --mesh data=<count>, on a rendered
+                4-image 256x320 scene at 5 views, D=128: the files of an unsharded
+                run_eval_pc, the depth maps within the BATCH_MEAN_DIFF bounds
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only native fusion eval train` runs just those phases after
+nothing of JAX or of atvsnet_tpu. `--only native fusion eval train parallel` runs just those phases after
 device and build: a short run while working on one of them, which exits 1 and prints no
 kernels line and no ok line.
 """
@@ -81,13 +95,18 @@ import glob
 import json
 import math
 import os
+import queue
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from atvsnet_torch import native
 from atvsnet_torch.cli import train as train_cli
@@ -114,6 +133,8 @@ from atvsnet_torch.models.tvsnet import (aam_aggregate_stacked, aam_output_conv,
 from atvsnet_torch.nn import layers as L
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
+from atvsnet_torch.parallel.mesh import auto_mesh_shape, make_mesh
+from atvsnet_torch.parallel.pipeline import sharded_forward
 from atvsnet_torch.serving import DepthEstimator
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -216,6 +237,20 @@ TRAIN_LAUNCHES = {(False, 0.0): (4, 4), (False, 0.5): (3, 3), (True, 0.0): (6, 4
 # global relative difference 5e-3; the card against device="cpu": loss rtol 1e-4
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_CPU_LOSS_RTOL = 1e-5, 5e-3, 1e-4
 CLI_STEPS = 30
+# The parallel phase. Soft-argmin launches of one rank's sharded flagship forward (the
+# parallel.pipeline forward: stage 1 launches once per pair, for the swapped direction
+# only, as the JAX SPMD forward computes it; AAM1 and the native final depth once each;
+# the 4 row tiles), for a rank with `pairs` pairs: 2 on a view=2 mesh (8 launches), all 4
+# on a data=2 one (10). multi_view_forward's 14 include each pair's reference-direction
+# depth, which no output of the sharded forward reads.
+def parallel_shapes(pairs: int) -> dict:
+    return {(1, 128, 120, 224): pairs + 2, (1, 128, 120, 896): 4}
+
+
+# the sharded train step against the step in one process: train (a)'s bounds
+PARALLEL_LOSS_RTOL, PARALLEL_GRAD_REL = 1e-4, 5e-3
+PARALLEL_RESULT_TIMEOUT_S = 400
+PARALLEL_EVAL = dict(view_num=5, max_d=128, max_h=256, max_w=320)
 # the flagship forward with each activation, in this order: every relu beside a maximum,
 # first and last alike, so that a drift of the host's launch rate falls on both
 ACTIVATION_ORDER = ("relu", "maximum", "maximum", "relu") * 3
@@ -1473,12 +1508,257 @@ def phase_train():
     return cli_launches
 
 
+def _rank_main(rank: int, size: int, init: dict, results, fn, args):
+    """One rank of a world phase_parallel starts: gloo over CUDA tensors on cuda:0 from a
+    FileStore, or (init["backend"] == "nccl") torchrun's environment, from which
+    make_mesh starts NCCL with one card per rank. Its result or its traceback goes to the
+    parent, which fails the run on any error."""
+    try:
+        if init["backend"] == "gloo":
+            torch.cuda.set_device(0)
+            dist.init_process_group("gloo", store=dist.FileStore(init["store"], size),
+                                    rank=rank, world_size=size)
+        else:
+            os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(init["port"]),
+                              RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(size))
+        try:
+            results.put((rank, "ok", fn(*args)))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_ranks(size: int, init: dict, fn, *args) -> list:
+    """fn(*args) on every rank of a world of `size` child processes, in rank order."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(r, size, init, results, fn, args))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        while len(got) < size and not errors:
+            rank, status, value = results.get(timeout=PARALLEL_RESULT_TIMEOUT_S)
+            if status == "ok":
+                got[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+    except queue.Empty:
+        errors.append(f"{size - len(got)} rank(s) gave no result in {PARALLEL_RESULT_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if errors or bad:
+        raise AssertionError(f"parallel: a rank failed (exit codes {bad})\n" + "\n".join(errors))
+    return [got[r] for r in range(size)]
+
+
+def parallel_scenes(cfg, n):
+    """n flagship scenes (synthetic_scene seeds 0..n-1) as one batch."""
+    scenes = [synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w, D=cfg.max_d,
+                              seed=s) for s in range(n)]
+    return np.concatenate([i for i, _ in scenes]), np.concatenate([c for _, c in scenes])
+
+
+def parallel_train_batch(cfg):
+    """Two train-size scenes; the second row keeps ~30% of its ground truth."""
+    rows = [train_batch(cfg, seed=s) for s in (3, 4)]
+    batch = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+    drop = np.random.RandomState(0).rand(*batch["depth_gt"][1].shape) < 0.7
+    batch["depth_gt"][1][drop] = 0.0
+    return batch
+
+
+def sharded_run(mesh, model, cfg, images, cams) -> dict:
+    """A warm sharded flagship forward, then the counted one: seconds, peak memory,
+    launches and the whole batch's depths."""
+    fwd = sharded_forward(mesh, cfg)
+    fwd(model, images, cams)         # cuDNN's algorithm choice and the allocator's growth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    S.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fwd(model, images, cams)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": S.softargmin_cuda.launches, "by_path": dict(S.softargmin_cuda.path_launches),
+            "by_shape": dict(S.softargmin_cuda.shape_launches),
+            "depths": {k: out[k].cpu().numpy() for k in DEPTH_KEYS},
+            "mesh": [mesh.n_data, mesh.n_view], "data_rank": mesh.data_rank,
+            "view_rank": mesh.view_rank}
+
+
+def parallel_shared_card():
+    """(a) and (b) on one rank of the 2-rank gloo world on cuda:0."""
+    torch.backends.cudnn.deterministic = True
+    cfg = PipelineConfig()
+    model = load_model(SPHERES, cfg, device="cuda:0")
+    images, cams = parallel_scenes(cfg, 2)
+    res = {}
+    for name, shape, rows in (("view=2", (1, 2), 1), ("data=2", (2, 1), 2)):
+        res[name] = sharded_run(make_mesh(*shape, device="cuda:0"), model, cfg, images[:rows],
+                                cams[:rows])
+    del model
+    torch.cuda.empty_cache()
+    tcfg_size = PipelineConfig(**TRAIN_SIZE)
+    batch = parallel_train_batch(tcfg_size)
+    for name, shape in (("train data=2", (2, 1)), ("train view=2", (1, 2))):
+        mesh = make_mesh(*shape, device="cuda:0")
+        model = load_model(SPHERES, tcfg_size, device="cuda:0").requires_grad_(True)
+        torch.cuda.synchronize()
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics, grads = loss_and_grads(model, batch, tcfg_size, TrainConfig(), mesh)
+        torch.cuda.synchronize()
+        res[name] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
+                     "launches": launch_record(),
+                     "grads": {n: g.cpu().numpy() for n, g in grads.items()}}
+    return res
+
+
+def parallel_nccl(size: int):
+    """(c) on one rank of the NCCL world: one card per rank, make_mesh from the environment."""
+    torch.backends.cudnn.deterministic = True
+    cfg = PipelineConfig()
+    mesh = make_mesh(*auto_mesh_shape(size, cfg.view_num - 1))
+    model = load_model(SPHERES, cfg, device=mesh.device)
+    images, cams = parallel_scenes(cfg, mesh.n_data)
+    return dict(sharded_run(mesh, model, cfg, images, cams), backend=dist.get_backend(),
+                device=str(mesh.device))
+
+
+def phase_parallel() -> dict:
+    """The multi-device layer: (a), (b) and (c) of the module docstring. Returns the
+    forward and backward kernels' launches over every rank's counted runs."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        shared = run_ranks(2, {"backend": "gloo", "store": os.path.join(tmp, "store")},
+                           parallel_shared_card)
+    count = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    nccl = run_ranks(count, {"backend": "nccl", "port": port}, parallel_nccl, count)
+
+    # the references, in this process once the worlds are done
+    torch.backends.cudnn.deterministic = True
+    cfg = PipelineConfig()
+    model = load_model(SPHERES, cfg, device="cuda")
+    n_rows = max(2, nccl[0]["mesh"][0])
+    images, cams = parallel_scenes(cfg, n_rows)
+    single = [multi_view_forward(model, images[i:i + 1], cams[i:i + 1], cfg) for i in range(n_rows)]
+    single = {k: torch.cat([o[k].cpu() for o in single], dim=1 if k == "depth_views" else 0)
+              for k in DEPTH_KEYS}
+    del model
+    tcfg_size = PipelineConfig(**TRAIN_SIZE)
+    model = load_model(SPHERES, tcfg_size, device="cuda").requires_grad_(True)
+    loss_1, _, grads_1 = loss_and_grads(model, parallel_train_batch(tcfg_size), tcfg_size,
+                                        TrainConfig())
+    grads_1 = {n: g.cpu() for n, g in grads_1.items()}
+    del model
+    torch.backends.cudnn.deterministic = False
+
+    def rows(n):
+        return {k: v[:, :n] if k == "depth_views" else v[:n] for k, v in single.items()}
+
+    def forward_record(ranks):
+        n = ranks[0]["mesh"][0]
+        agree = depth_differences(ranks[0]["depths"], rows(n), DEPTH_KEYS)
+        same = all(np.array_equal(r["depths"][k], ranks[0]["depths"][k])
+                   for r in ranks for k in DEPTH_KEYS)
+        expected = parallel_shapes((cfg.view_num - 1) // ranks[0]["mesh"][1])
+        launches_ok = all(r["by_shape"] == expected and r["by_path"]["scalar"] == 0 for r in ranks)
+        return {"mesh": ranks[0]["mesh"], "vs_one_process": agree,
+                "ranks_agree_to_the_bit": same,
+                "per_rank": [{"seconds": r["seconds"], "peak_bytes": r["peak_bytes"],
+                              "launches": r["launches"], "by_shape": shape_counts(r["by_shape"])}
+                             for r in ranks],
+                "expected_by_shape": shape_counts(expected),
+                "ok": within_batch_bounds(agree) and same and launches_ok}
+
+    a = {name: forward_record([r[name] for r in shared]) for name in ("view=2", "data=2")}
+    ok_a = all(v["ok"] for v in a.values())
+    emit(phase="parallel", part="a: 2 ranks sharing cuda:0 over gloo", runs=a,
+         batch_mean_diff=BATCH_MEAN_DIFF, batch_diff_at=BATCH_DIFF_AT,
+         batch_max_share=BATCH_MAX_SHARE, ok=ok_a)
+
+    b, ok_b = {}, True
+    expected_train = TRAIN_LAUNCHES[(False, 0.0)]
+    for name in ("train data=2", "train view=2"):
+        per = []
+        for r in shared:
+            res = r[name]
+            loss_rel = abs(res["loss"] - float(loss_1)) / abs(float(loss_1))
+            rel = grad_rel({n: torch.from_numpy(g) for n, g in res["grads"].items()}, grads_1)
+            per.append({"loss": res["loss"], "loss_rel": loss_rel, "grad_rel": rel,
+                        "seconds": res["seconds"], "launches": res["launches"]})
+        # per rank and step: data=2 runs the one-row loss (4 forward, 4 backward launches),
+        # view=2 one pair of stage 1 fewer (3 and 3) on the train shape
+        want = expected_train if name.endswith("data=2") else tuple(n - 1 for n in expected_train)
+        row_ok = all(p["loss_rel"] <= PARALLEL_LOSS_RTOL and p["grad_rel"] <= PARALLEL_GRAD_REL
+                     and (p["launches"]["forward"]["launches"],
+                          p["launches"]["backward"]["launches"]) == want for p in per)
+        b[name] = {"per_rank": per, "expected_launches": list(want), "ok": row_ok}
+        ok_b = ok_b and row_ok
+    emit(phase="parallel", part="b: sharded train step on the same world", size=TRAIN_SIZE,
+         dtype="float32", loss_one_process=float(loss_1), loss_rtol=PARALLEL_LOSS_RTOL,
+         grad_rel_bound=PARALLEL_GRAD_REL, runs=b, ok=ok_b)
+
+    c = forward_record(nccl)
+    ok_c = c["ok"] and all(r["backend"] == "nccl" for r in nccl)
+    emit(phase="parallel", part="c: one rank per card over NCCL", world_size=count,
+         devices=[r["device"] for r in nccl], backend=[r["backend"] for r in nccl], run=c,
+         ok=ok_c)
+
+    # (d) the eval CLI as a user starts it, one process per card
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_eth3d_scene(os.path.join(tmp, "eth3d", "s0"), 4, PARALLEL_EVAL["max_h"],
+                          PARALLEL_EVAL["max_w"], 0, num_d=PARALLEL_EVAL["max_d"], num_spheres=2)
+        argv = [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={count}",
+                "-m", "atvsnet_torch.cli.eval_pointcloud", "--mesh", f"data={count}",
+                "--data_root", tmp, "--savepath", os.path.join(tmp, "sharded"), "--scenes", "s0",
+                "--params", SPHERES] + [f"--{k}={v}" for k, v in PARALLEL_EVAL.items()]
+        t0 = time.perf_counter()
+        cli = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"parallel (d): torchrun exited {cli.returncode}\n{cli.stderr[-4000:]}")
+        torch.backends.cudnn.deterministic = True
+        run_eval_pc(tmp, os.path.join(tmp, "plain"), ["s0"], params_path=SPHERES, **PARALLEL_EVAL)
+        torch.backends.cudnn.deterministic = False
+        folders = [os.path.join(tmp, k, "s0", "depths_atvsnet") for k in ("sharded", "plain")]
+        same_files = sorted(os.listdir(folders[0])) == sorted(os.listdir(folders[1]))
+        maps = [{"depth": np.stack([load_pfm(os.path.join(f, f"{i:08d}.pfm")) for i in range(4)])}
+                for f in folders]
+    agree = depth_differences(maps[0], maps[1], ("depth",))
+    ok_d = same_files and within_batch_bounds(agree)
+    emit(phase="parallel", part="d: cli.eval_pointcloud under torchrun", argv=argv[2:8],
+         seconds=cli_s, same_files=same_files, vs_unsharded=agree, ok=ok_d)
+    if not (ok_a and ok_b and ok_c and ok_d):
+        raise AssertionError("parallel: a sharded run disagrees or launched wrong; see above")
+    forward = (sum(r[n]["launches"] for r in shared for n in ("view=2", "data=2"))
+               + sum(r[n]["launches"]["forward"]["launches"] for r in shared for n in b)
+               + sum(r["launches"] for r in nccl))
+    backward = sum(r[n]["launches"]["backward"]["launches"] for r in shared for n in b)
+    return {"forward": forward, "backward": backward}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--only", nargs="+", choices=["native", "fusion", "eval", "train"], default=None,
+    ap.add_argument("--only", nargs="+", choices=["native", "fusion", "eval", "train", "parallel"],
+                    default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
     args = ap.parse_args()
@@ -1496,7 +1776,7 @@ def main() -> int:
     if args.only:
         for phase in args.only:
             {"native": phase_native, "fusion": lambda: phase_fusion(kind), "eval": phase_eval,
-             "train": phase_train}[phase]()
+             "train": phase_train, "parallel": phase_parallel}[phase]()
         print(smi, flush=True)
         return 1  # a partial run is no pass
     max_err = phase_kernel()
@@ -1522,22 +1802,27 @@ def main() -> int:
     eval_launches = phase_eval()
     torch.cuda.empty_cache()
     train_launches = phase_train()
+    torch.cuda.empty_cache()
+    parallel_launches = phase_parallel()
 
     print(smi, flush=True)
-    # launches: the flagship forward's, the eval path's and the train CLI run's, each counted
-    # from 0 over its own run; the forward's ms, plain_ms and bound_ms are per flagship
-    # forward, the backward's per train step of the CLI (its 4 launches at the train shape)
+    # launches: the flagship forward's, the eval path's, the train CLI run's and the parallel
+    # phase's (summed over its ranks' counted runs), each counted from 0 over its own run;
+    # the forward's ms, plain_ms and bound_ms are per flagship forward, the backward's per
+    # train step of the CLI (its 4 launches at the train shape)
     train_fwd, train_bwd = train_launches["forward"]["launches"], train_launches["backward"]["launches"]
+    par_fwd, par_bwd = parallel_launches["forward"], parallel_launches["backward"]
     emit(kernels=[{
         "name": "softargmin", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
-        "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches + eval_launches + train_fwd,
-        "launches_by_run": {"forward": launches, "eval": eval_launches, "train": train_fwd},
+        "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches + eval_launches + train_fwd + par_fwd,
+        "launches_by_run": {"forward": launches, "eval": eval_launches, "train": train_fwd,
+                            "parallel": par_fwd},
         "max_abs_err": max_err, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"], "bound_by": bound_by, "library_ms": None,
     }, {
         "name": "softargmin_backward", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
         "replaces": "atvsnet_tpu/ops/softargmin.py:141 (_fused_bwd, XLA formula)",
-        "launches": train_bwd, "launches_by_run": {"train": train_bwd},
+        "launches": train_bwd + par_bwd, "launches_by_run": {"train": train_bwd, "parallel": par_bwd},
         "max_abs_err": max_err_bwd, "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
         "bound_ms": bwd_totals["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
     }])

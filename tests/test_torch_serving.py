@@ -275,7 +275,9 @@ def test_default_device_is_the_gpu_and_params_sources(tmp_path):
             DepthEstimator(PipelineConfig(**KW))
         with pytest.raises(RuntimeError, match="CUDA"):
             run_example(str(tmp_path), 0, 3)
-    with pytest.raises(TypeError):
+    # a mesh needs a world: without torchrun's environment or a started process group,
+    # make_mesh refuses (tests/test_torch_parallel_serving.py serves on gloo worlds)
+    with pytest.raises(ValueError, match="RANK"):
         DepthEstimator(PipelineConfig(**KW), device="cpu", mesh="data=1,view=2")
     est = DepthEstimator(PipelineConfig(**KW), seed=4, device="cpu")
     path = str(tmp_path / "weights.npz")
