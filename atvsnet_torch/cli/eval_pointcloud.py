@@ -3,7 +3,8 @@ reference atvsnet/eval_pointcloud.py).
 
     python -m atvsnet_torch.cli.eval_pointcloud --data_root ../data --savepath ./eval_out \
         [--scenes lakeside sand_box ...] [--params model.npz] [--view_num 8] \
-        [--batch 1] [--mesh data=2,view=4] [--gt_range] [--device cpu]
+        [--batch 1] [--mesh data=2,view=4] [--gt_range] [--device cpu] \
+        [--act-quant none|int8|int8s] [--warp-quant none|int8]
 
 Per scene: parse pair.txt, per reference image run the N-view forward, write %08d.pfm
 depth, %08d_prob.pfm confidence, ref jpg + cam txt, a viridis png, and zz_runtime.txt.
@@ -31,7 +32,12 @@ one per device, started by torchrun:
 Each batch (rounded up to a multiple of N) is split over 'data': a data rank loads and
 runs its own rows, and its view pairs are split over 'view'. Only view rank 0 of each
 data group writes its rows' files, which are the files of an unsharded run; the call
-returns on every rank once all of them are written.
+returns on every rank once all of them are written. run_eval_pc also takes a built
+parallel.mesh.Mesh, a 3-axis one with 'depth' too; then depth rank 0 writes.
+
+--act-quant / --warp-quant store the volume links / the warped feature volumes on int8
+lattices (PipelineConfig.act_quant, warp_quant; inference only). The default, none, is
+the exact path.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import torch.distributed as dist
 
 from atvsnet_torch import resolve_device
 from atvsnet_torch.cli.example import save_colormap
-from atvsnet_torch.config import PipelineConfig
+from atvsnet_torch.config import ACT_QUANT_MODES, WARP_QUANT_MODES, PipelineConfig
 from atvsnet_torch.data import image_io
 from atvsnet_torch.data.cams import write_cam
 from atvsnet_torch.data.mvs_list import gen_pipeline_mvs_list
@@ -57,7 +63,7 @@ from atvsnet_torch.data.pfm import save_pfm
 from atvsnet_torch.data.preprocess import load_mvs_sample
 from atvsnet_torch.models.atvsnet import sweep_to_depth
 from atvsnet_torch.params import init_model, load_model
-from atvsnet_torch.parallel.mesh import block, make_mesh, parse_mesh_spec
+from atvsnet_torch.parallel.mesh import Mesh, block, make_mesh, parse_mesh_spec
 from atvsnet_torch.serving import packed_forward, unpack_rows
 from atvsnet_torch.utils import log
 from atvsnet_torch.utils.transfer import finish_download
@@ -113,7 +119,9 @@ def run_eval_pc(
     gt_range: bool = False,
     full_viz: bool = False,
     device=None,
-    mesh: str | None = None,
+    mesh: str | Mesh | None = None,
+    act_quant: str = "none",
+    warp_quant: str = "none",
 ) -> dict:
     """Depth, confidence, reference jpg, cam and png of every reference image of `scenes`
     under <data_root>/eth3d/, written to <savepath>/<scene>/depths_atvsnet/. Runs on
@@ -121,15 +129,17 @@ def run_eval_pc(
     blocked on loading, queueing the forwards, waiting for them and flushing the writes;
     seconds of each batch from before its upload until its download had landed; and each
     scene's wall seconds and maps per second. `mesh`: a spec such as "data=2,view=2" (see
-    the module docstring); every rank of the mesh calls run_eval_pc alike.
+    the module docstring), or a built Mesh; every rank of the mesh calls run_eval_pc
+    alike. act_quant, warp_quant: PipelineConfig's storage quantization.
     """
-    if mesh:
-        n_data, n_view = parse_mesh_spec(mesh)
-        mesh = make_mesh(n_data, n_view, device=device)
+    if isinstance(mesh, str) and mesh:
+        mesh = make_mesh(*parse_mesh_spec(mesh), device=device)
+    if isinstance(mesh, Mesh):
         device = mesh.device
-        if batch % n_data:
-            batch = n_data * max(1, batch // n_data)
-        log.info(f"mesh (data={n_data}, view={n_view}), batch={batch}")
+        if batch % mesh.n_data:
+            batch = mesh.n_data * max(1, batch // mesh.n_data)
+        log.info(f"mesh (data={mesh.n_data}, view={mesh.n_view}, depth={mesh.n_depth}), "
+                 f"batch={batch}")
     else:
         mesh = None
     device = resolve_device(device)
@@ -138,8 +148,14 @@ def run_eval_pc(
     max_w = (max_w // 32) * 32
     cfg = PipelineConfig(
         view_num=view_num, max_d=max_d, max_h=max_h, max_w=max_w, compute_dtype=compute_dtype,
+        act_quant=act_quant, warp_quant=warp_quant,
     )
-    log.info(f"numerics: compute_dtype={compute_dtype}, device {device}")
+    log.info(
+        f"numerics: compute_dtype={compute_dtype} act_quant={act_quant} "
+        f"warp_quant={warp_quant}, device {device}"
+        + ("" if act_quant == "none" and warp_quant == "none"
+           else " (quantized mode; pass --act-quant none --warp-quant none for the exact path)")
+    )
 
     if params_path:
         if not os.path.exists(params_path):
@@ -184,9 +200,9 @@ def run_eval_pc(
             inverse_depth=cfg.inverse_depth, gt_range=gt_range, center=False,
         )
 
-    # this rank's rows of each batch; only view rank 0 of each data group writes
+    # this rank's rows of each batch; only view (and depth) rank 0 of each data group writes
     rows = range(batch) if mesh is None else range(batch)[block(batch, mesh.n_data, mesh.data_rank)]
-    writer = mesh is None or mesh.view_rank == 0
+    writer = mesh is None or (mesh.view_rank == 0 and mesh.depth_rank == 0)
 
     def _load_chunk(paths_chunk):
         """Decode+preprocess this rank's rows of a batch off the main thread, which then
@@ -342,6 +358,20 @@ def run_eval_pc(
         write_pool.shutdown(wait=True)
 
 
+def _quant_mode(field: str):
+    """An argparse type that refuses what PipelineConfig refuses, with its message
+    (act_quant="int8mxu" among them, before argparse's list of choices)."""
+
+    def parse(value: str) -> str:
+        try:
+            PipelineConfig(**{field: value})
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(str(e)) from None
+        return value
+
+    return parse
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--data_root", default="../data/")
@@ -369,6 +399,15 @@ def main() -> None:
                          "the PFM outputs are identical either way)")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the GPU (an error without CUDA)")
+    ap.add_argument("--act-quant", default="none", type=_quant_mode("act_quant"),
+                    choices=list(ACT_QUANT_MODES),
+                    help="int8 storage of the volume links (PipelineConfig.act_quant; "
+                         "inference only): int8 a per-tensor scale, int8s a static one. "
+                         "Default none = the exact path")
+    ap.add_argument("--warp-quant", default="none", type=_quant_mode("warp_quant"),
+                    choices=list(WARP_QUANT_MODES),
+                    help="int8 storage for the warped feature volumes "
+                         "(PipelineConfig.warp_quant; independent of --act-quant)")
     args = ap.parse_args()
     run_eval_pc(
         args.data_root, args.savepath, args.scenes,
@@ -377,6 +416,7 @@ def main() -> None:
         batch=args.batch, mesh=args.mesh,
         load_workers=args.load_workers, write_workers=args.write_workers,
         gt_range=args.gt_range, full_viz=args.full_viz, device=args.device,
+        act_quant=args.act_quant, warp_quant=args.warp_quant,
     )
 
 

@@ -2,9 +2,13 @@
 atvsnet_tpu/config.py).
 
 Same fields and validation as atvsnet_tpu.config.PipelineConfig, minus the knobs that
-only mean something on a TPU (act_quant*, warp_quant, fp32_precision,
-scoped_vmem_kib). The port runs true fp32 for compute_dtype="float32": TF32 is off for
-both matmuls and cuDNN convolutions (models.tvsnet.prepare_inputs).
+only mean something on a TPU: fp32_precision (the MXU's pass count), scoped_vmem_kib (the
+Pallas kernel's VMEM budget) and act_quant="int8mxu" (int8 convolutions on the MXU). The
+storage quantization (act_quant none|int8|int8s, act_quant_range, warp_quant none|int8) is
+ported: the JAX package reads it from a trace-scoped policy (atvsnet_tpu/numerics.py), the
+port passes it down explicitly (nn.layers.ActQuant, geometry.warp.plane_sweep_warp). The
+port runs true fp32 for compute_dtype="float32": TF32 is off for both matmuls and cuDNN
+convolutions (models.tvsnet.prepare_inputs).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SOFTARGMIN_IMPLS = ("auto", "cuda", "torch")
+ACT_QUANT_MODES = ("none", "int8", "int8s")
+WARP_QUANT_MODES = ("none", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,15 @@ class PipelineConfig:
     # Reproduce the reference's per-pair visual-hull camera-indexing bug (the hull's
     # view term always reads camera 1); see models.tvsnet.refinement.
     reference_compat: bool = False
+    # Storage quantization, inference only (round() has no gradient; the train CLI never
+    # sets it). act_quant round-trips every 5D volume link (the conv_bn / deconv_bn /
+    # conv3d_mixed_bn outputs) through an int8 lattice: "int8" with a per-tensor max-abs
+    # scale, "int8s" with the static scale act_quant_range / 255 (relu links, uint8) or
+    # / 127 (signed links). warp_quant="int8" stores the bilinear plane-sweep volumes on a
+    # per-(sample, channel) int8 lattice scaled by the source map's max.
+    act_quant: str = "none"
+    act_quant_range: float = 6.0
+    warp_quant: str = "none"
 
     # --- fusion (reference depth_fusion.py defaults) ---
     prob_threshold: float = 0.8
@@ -83,6 +98,16 @@ class PipelineConfig:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}"
             )
+        if self.act_quant == "int8mxu":
+            raise ValueError(
+                "act_quant='int8mxu' is the TPU MXU's int8 convolution path and is not "
+                f"ported; expected one of {'|'.join(ACT_QUANT_MODES)}")
+        if self.act_quant not in ACT_QUANT_MODES:
+            raise ValueError(
+                f"act_quant={self.act_quant!r}: expected one of {'|'.join(ACT_QUANT_MODES)}")
+        if self.warp_quant not in WARP_QUANT_MODES:
+            raise ValueError(
+                f"warp_quant={self.warp_quant!r}: expected one of {'|'.join(WARP_QUANT_MODES)}")
         if self.softargmin_impl not in _SOFTARGMIN_IMPLS:
             raise ValueError(
                 f"softargmin_impl must be one of {_SOFTARGMIN_IMPLS}, got {self.softargmin_impl!r}"

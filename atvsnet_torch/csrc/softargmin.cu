@@ -37,7 +37,18 @@
 //    that it rounds like the plain PyTorch version.
 //
 // The file also holds the backward kernel (below: the gradient with respect to the cost),
-// built on the same tiling, packets and exponent.
+// built on the same tiling, packets and exponent, and the two entry points of a D split
+// across the ranks of a 'depth' mesh axis (atvsnet_torch/parallel/depth.py), which the
+// TPU package leaves to XLA's partitioner around the same Pallas kernel:
+//  - the partial forward: this kernel with the global index of the slice's first plane
+//    (`offset`) added to every sweep index, writing the merged triple of its slices
+//    (max, sum, weighted sum) per pixel instead of their ratio; the wrapper merges the
+//    ranks' triples;
+//  - the stats-fed backward: the backward's second pass alone, its reference point and
+//    sum read from the merged ones.
+// Both are bound by bytes, as the whole-D kernels are: the partial forward reads its slice
+// once and writes 12 bytes per pixel; the stats-fed backward reads its slice once (no first
+// pass: the merged stats come in) and writes its gradient.
 //
 // Plain C interface for ctypes; the wrapper (atvsnet_torch/ops/softargmin.py) checks
 // shapes, dtypes and contiguity, picks the path and launches on PyTorch's current stream.
@@ -134,28 +145,50 @@ __device__ __forceinline__ void fold(Triple<kPix>& t, const float (&v)[kChunk][k
   }
 }
 
-// Depth of tile pixel px from the kSlices triples in shared memory.
+// The kSlices triples of tile pixel px in shared memory, merged into one: the max, and
+// the two sums taken against finite_or_zero of it.
 template <int kSlices>
-__device__ __forceinline__ float combine(const float (&part)[3][kSlices][kTile], int px) {
-  float m = -INFINITY;
+__device__ __forceinline__ void combine(const float (&part)[3][kSlices][kTile], int px,
+                                        float& m, float& sum, float& num) {
+  m = -INFINITY;
 #pragma unroll
   for (int s = 0; s < kSlices; ++s) m = fmaxf(m, part[0][s][px]);
   const float ref = finite_or_zero(m);
-  float sum = 0.f, num = 0.f;
+  sum = 0.f;
+  num = 0.f;
 #pragma unroll
   for (int s = 0; s < kSlices; ++s) {
     const float w = exp_of(part[0][s][px] - ref);  // 0 for a slice that saw only +inf
     sum += part[1][s][px] * w;
     num += part[2][s][px] * w;
   }
-  return num / sum;
 }
 
-template <typename Raw>
+// Write value v of tile pixel o (o = blockIdx.x * kTile + threadIdx.x, one per thread of
+// the first kTile). With packets (kPix > 1) four neighbours hand their values to one lane,
+// which writes 16 bytes: B*h*w is then a multiple of 4, so a group of four is all inside
+// or all outside. Every thread of the two warps must call it (shuffles).
+template <int kPix>
+__device__ __forceinline__ void store_tile(float* __restrict__ out, float v, uint32_t o,
+                                           uint32_t total) {
+  if constexpr (kPix > 1) {
+    const float v1 = __shfl_down_sync(0xffffffffu, v, 1);
+    const float v2 = __shfl_down_sync(0xffffffffu, v, 2);
+    const float v3 = __shfl_down_sync(0xffffffffu, v, 3);
+    if (threadIdx.x % 4 == 0 && o < total)
+      __stcs(reinterpret_cast<float4*>(out + o), make_float4(v, v1, v2, v3));
+  } else {
+    if (o < total) out[o] = v;
+  }
+}
+
+// kPartial = false: out is the depth (B, HW). kPartial = true: out is (3, B, HW), the
+// triple of planes offset .. offset + D - 1 of a longer sweep (the partial forward).
+template <typename Raw, bool kPartial>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
                   const float* __restrict__ interval, float* __restrict__ out,
-                  int B, int D, int HW) {
+                  int B, int D, int HW, int offset) {
   constexpr int kPix = Packet<Raw>::kPix;
   constexpr int kChunk = Packet<Raw>::kChunk;
   constexpr int kLanes = kTile / kPix;        // lanes that cover one plane of the tile
@@ -197,7 +230,7 @@ softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
 #pragma unroll
         for (int p = 0; p < kPix; ++p) v[j][p] = (d0 + j < end) ? -v[j][p] : -INFINITY;
       }
-      fold<kPix, kChunk>(t, v, d0, s0, step);
+      fold<kPix, kChunk>(t, v, offset + d0, s0, step);
     }
   }
 
@@ -209,20 +242,18 @@ softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
   }
   __syncthreads();
 
-  // The first kTile threads combine the slices, one pixel each. On the aligned path four
-  // neighbours hand their depths to one lane, which writes 16 bytes (B*h*w is then a
-  // multiple of 4, so a group of four is all inside or all outside).
+  // The first kTile threads combine the slices, one pixel each, and write the depth (or
+  // the triple) 16 bytes per lane on the aligned path.
   if (threadIdx.x < kTile) {
     const uint32_t o = blockIdx.x * kTile + threadIdx.x;
-    const float res = combine<kSlices>(part, threadIdx.x);
-    if constexpr (kPix > 1) {
-      const float r1 = __shfl_down_sync(0xffffffffu, res, 1);
-      const float r2 = __shfl_down_sync(0xffffffffu, res, 2);
-      const float r3 = __shfl_down_sync(0xffffffffu, res, 3);
-      if (threadIdx.x % 4 == 0 && o < total)
-        __stcs(reinterpret_cast<float4*>(out + o), make_float4(res, r1, r2, r3));
+    float m, sum, num;
+    combine<kSlices>(part, threadIdx.x, m, sum, num);
+    if constexpr (kPartial) {
+      store_tile<kPix>(out, m, o, total);
+      store_tile<kPix>(out + total, sum, o, total);
+      store_tile<kPix>(out + 2 * (int64_t)total, num, o, total);
     } else {
-      if (o < total) out[o] = res;
+      store_tile<kPix>(out, num / sum, o, total);
     }
   }
 }
@@ -270,6 +301,39 @@ __device__ __forceinline__ void pack(const float (&v)[8], uint4& r) {
 __device__ __forceinline__ void pack(const float (&v)[1], float& r) { r = v[0]; }
 __device__ __forceinline__ void pack(const float (&v)[1], unsigned short& r) {
   r = (unsigned short)float_to_bf16_bits(v[0]);
+}
+
+// The backward's second pass for one lane: planes begin .. end - 1 of its slice (sweep
+// indices offset + d), from the per-pixel reference point, g / sum and depth. The cost is
+// read for the last time (ld.global.cs) and the gradient written in the cost's dtype.
+template <typename Raw, int kPix, int kChunk>
+__device__ __forceinline__ void write_gradient(const Raw* __restrict__ src, Raw* __restrict__ dst,
+                                               int begin, int end, int64_t stride, float s0,
+                                               float step, int offset, const float (&ref)[kPix],
+                                               const float (&scale)[kPix],
+                                               const float (&dep)[kPix]) {
+  for (int d0 = begin; d0 < end; d0 += kChunk) {
+    Raw raw[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      raw[j] = (d0 + j < end) ? __ldcs(src + (int64_t)(d0 + j) * stride) : Raw{};
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (d0 + j >= end) break;
+      float c[kPix], out[kPix];
+      unpack(raw[j], c);
+      // start + d * interval, rounded like the plain version (no fma)
+      const float sw = __fadd_rn(s0, __fmul_rn((float)(offset + d0 + j), step));
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        const float e = exp_of(-c[p] - ref[p]);
+        out[p] = -(scale[p] * e) * (sw - dep[p]);
+      }
+      Raw packed;
+      pack(out, packed);
+      __stcs(dst + (int64_t)(d0 + j) * stride, packed);
+    }
+  }
 }
 
 // 4 blocks per SM (<= 128 registers): pass 2 holds a chunk of loads and three values per
@@ -369,30 +433,46 @@ softargmin_backward_kernel(const Raw* __restrict__ cost, const float* __restrict
     scale[p] = stat[1][lane * kPix + p];
     dep[p] = stat[2][lane * kPix + p];
   }
-  const Raw* src = cost + offset;
-  Raw* dst = grad_cost + offset;
-  for (int d0 = begin; d0 < end; d0 += kChunk) {
-    Raw raw[kChunk];
+  write_gradient<Raw, kPix, kChunk>(cost + offset, grad_cost + offset, begin, end, stride, s0,
+                                    step, 0, ref, scale, dep);
+}
+
+// The stats-fed backward of a D split: the slice's planes are offset .. offset + D - 1 of
+// the sweep, and stats (2, B, HW) holds the merged max and sum of every rank's planes, so
+// the per-pixel reference point and g / sum come in and one pass writes the gradient.
+// Same grid, packets and paths as the backward; no shared memory, no barrier.
+template <typename Raw>
+__global__ void __launch_bounds__(kThreads, 4)
+softargmin_backward_stats_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
+                                 const float* __restrict__ interval,
+                                 const float* __restrict__ stats, const float* __restrict__ depth,
+                                 const float* __restrict__ grad_depth, Raw* __restrict__ grad_cost,
+                                 int B, int D, int HW, int offset) {
+  constexpr int kPix = Packet<Raw>::kPix;
+  constexpr int kChunk = Packet<Raw>::kChunk;
+  constexpr int kLanes = kTile / kPix;
+  constexpr int kSlices = kThreads / kLanes;
+
+  const int lane = threadIdx.x % kLanes;
+  const int slice = threadIdx.x / kLanes;
+  const uint32_t total = (uint32_t)B * HW;
+  const uint32_t pix0 = blockIdx.x * kTile + lane * kPix;
+  if (pix0 >= total) return;
+
+  const int b = (int)(pix0 / (uint32_t)HW);
+  const int per = (D + kSlices - 1) / kSlices;
+  const int begin = min(D, slice * per);
+  const int end = min(D, begin + per);
+  const int64_t elem = ((int64_t)b * D * HW + (pix0 - (uint32_t)b * HW)) / kPix;
+  float ref[kPix], scale[kPix], dep[kPix];
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      raw[j] = (d0 + j < end) ? __ldcs(src + (int64_t)(d0 + j) * stride) : Raw{};
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (d0 + j >= end) break;
-      float c[kPix], out[kPix];
-      unpack(raw[j], c);
-      // start + d * interval, rounded like the plain version (no fma)
-      const float sw = __fadd_rn(s0, __fmul_rn((float)(d0 + j), step));
-#pragma unroll
-      for (int p = 0; p < kPix; ++p) {
-        const float e = exp_of(-c[p] - ref[p]);
-        out[p] = -(scale[p] * e) * (sw - dep[p]);
-      }
-      Raw packed;
-      pack(out, packed);
-      __stcs(dst + (int64_t)(d0 + j) * stride, packed);
-    }
+  for (int p = 0; p < kPix; ++p) {
+    ref[p] = finite_or_zero(stats[pix0 + p]);
+    scale[p] = grad_depth[pix0 + p] / stats[total + pix0 + p];  // NaN if all planes are +inf
+    dep[p] = depth[pix0 + p];
   }
+  write_gradient<Raw, kPix, kChunk>(cost + elem, grad_cost + elem, begin, end, HW / kPix,
+                                    start[b], interval[b], offset, ref, scale, dep);
 }
 
 // An empty launch of the grid a soft-argmin call uses: its device time is what a launch
@@ -403,23 +483,23 @@ unsigned grid_blocks(int B, int HW) {
   return (unsigned)(((int64_t)B * HW + kTile - 1) / kTile);
 }
 
-template <typename Vec, typename Scalar>
+template <typename Vec, typename Scalar, bool kPartial>
 int launch(const void* cost, const void* start, const void* interval, void* out,
-           int B, int D, int HW, int aligned, void* stream_ptr) {
+           int B, int D, int HW, int offset, int aligned, void* stream_ptr) {
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
   const unsigned blocks = grid_blocks(B, HW);
   const float* s = (const float*)start;
   const float* i = (const float*)interval;
   if (!aligned) {
-    softargmin_kernel<Scalar><<<blocks, kThreads, 0, stream>>>(
-        (const Scalar*)cost, s, i, (float*)out, B, D, HW);
+    softargmin_kernel<Scalar, kPartial><<<blocks, kThreads, 0, stream>>>(
+        (const Scalar*)cost, s, i, (float*)out, B, D, HW, offset);
     return (int)cudaGetLastError();
   }
   // 16-byte loads and stores fault on anything else
   if ((uintptr_t)cost % 16 || (uintptr_t)out % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  softargmin_kernel<Vec><<<blocks, kThreads, 0, stream>>>(
-      (const Vec*)cost, s, i, (float*)out, B, D, HW);
+  softargmin_kernel<Vec, kPartial><<<blocks, kThreads, 0, stream>>>(
+      (const Vec*)cost, s, i, (float*)out, B, D, HW, offset);
   return (int)cudaGetLastError();
 }
 
@@ -445,6 +525,30 @@ int launch_backward(const void* cost, const void* start, const void* interval, c
   return (int)cudaGetLastError();
 }
 
+template <typename Vec, typename Scalar>
+int launch_backward_stats(const void* cost, const void* start, const void* interval,
+                          const void* stats, const void* depth, const void* grad_depth,
+                          void* grad_cost, int B, int D, int HW, int offset, int aligned,
+                          void* stream_ptr) {
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const unsigned blocks = grid_blocks(B, HW);
+  const float* s = (const float*)start;
+  const float* i = (const float*)interval;
+  const float* st = (const float*)stats;
+  const float* d = (const float*)depth;
+  const float* g = (const float*)grad_depth;
+  if (!aligned) {
+    softargmin_backward_stats_kernel<Scalar><<<blocks, kThreads, 0, stream>>>(
+        (const Scalar*)cost, s, i, st, d, g, (Scalar*)grad_cost, B, D, HW, offset);
+    return (int)cudaGetLastError();
+  }
+  if ((uintptr_t)cost % 16 || (uintptr_t)grad_cost % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  softargmin_backward_stats_kernel<Vec><<<blocks, kThreads, 0, stream>>>(
+      (const Vec*)cost, s, i, st, d, g, (Vec*)grad_cost, B, D, HW, offset);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cost (B, D, HW) contiguous, start and interval (B,) fp32, out (B, HW) fp32. `aligned`
@@ -452,13 +556,32 @@ int launch_backward(const void* cost, const void* start, const void* interval, c
 extern "C" int atvsnet_softargmin_f32(const void* cost, const void* start, const void* interval,
                                       void* out, int B, int D, int HW, int aligned,
                                       void* stream) {
-  return launch<float4, float>(cost, start, interval, out, B, D, HW, aligned, stream);
+  return launch<float4, float, false>(cost, start, interval, out, B, D, HW, 0, aligned, stream);
 }
 
 extern "C" int atvsnet_softargmin_bf16(const void* cost, const void* start, const void* interval,
                                        void* out, int B, int D, int HW, int aligned,
                                        void* stream) {
-  return launch<uint4, unsigned short>(cost, start, interval, out, B, D, HW, aligned, stream);
+  return launch<uint4, unsigned short, false>(cost, start, interval, out, B, D, HW, 0, aligned,
+                                              stream);
+}
+
+// The partial forward of a D split: cost (B, D, HW) holds planes offset .. offset + D - 1
+// of the sweep; out (3, B, HW) fp32 gets the max of -cost, the sum of exp(-cost - ref) and
+// the same sum weighted by the sweep, ref = finite_or_zero(max). `aligned` as above, with
+// out's pointer checked. Returns a cudaError_t.
+extern "C" int atvsnet_softargmin_partial_f32(const void* cost, const void* start,
+                                              const void* interval, void* out, int B, int D,
+                                              int HW, int offset, int aligned, void* stream) {
+  return launch<float4, float, true>(cost, start, interval, out, B, D, HW, offset, aligned,
+                                     stream);
+}
+
+extern "C" int atvsnet_softargmin_partial_bf16(const void* cost, const void* start,
+                                               const void* interval, void* out, int B, int D,
+                                               int HW, int offset, int aligned, void* stream) {
+  return launch<uint4, unsigned short, true>(cost, start, interval, out, B, D, HW, offset,
+                                             aligned, stream);
 }
 
 // The backward: cost (B, D, HW) as the forward's; depth and grad_depth (B, HW) fp32;
@@ -478,6 +601,28 @@ extern "C" int atvsnet_softargmin_backward_bf16(const void* cost, const void* st
                                                 int D, int HW, int aligned, void* stream) {
   return launch_backward<uint4, unsigned short>(cost, start, interval, depth, grad_depth,
                                                 grad_cost, B, D, HW, aligned, stream);
+}
+
+// The stats-fed backward of a D split: cost (B, D, HW) as the partial forward's; stats
+// (2, B, HW) the merged max and sum; depth and grad_depth (B, HW) fp32; grad_cost
+// (B, D, HW) in the cost's dtype. Returns a cudaError_t.
+extern "C" int atvsnet_softargmin_backward_stats_f32(const void* cost, const void* start,
+                                                     const void* interval, const void* stats,
+                                                     const void* depth, const void* grad_depth,
+                                                     void* grad_cost, int B, int D, int HW,
+                                                     int offset, int aligned, void* stream) {
+  return launch_backward_stats<float4, float>(cost, start, interval, stats, depth, grad_depth,
+                                              grad_cost, B, D, HW, offset, aligned, stream);
+}
+
+extern "C" int atvsnet_softargmin_backward_stats_bf16(const void* cost, const void* start,
+                                                      const void* interval, const void* stats,
+                                                      const void* depth, const void* grad_depth,
+                                                      void* grad_cost, int B, int D, int HW,
+                                                      int offset, int aligned, void* stream) {
+  return launch_backward_stats<uint4, unsigned short>(cost, start, interval, stats, depth,
+                                                      grad_depth, grad_cost, B, D, HW, offset,
+                                                      aligned, stream);
 }
 
 extern "C" int atvsnet_softargmin_noop(int B, int HW, void* stream) {

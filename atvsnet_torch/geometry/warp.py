@@ -10,6 +10,11 @@ which torch.nn.functional.grid_sample does not share:
 
 The sampling math lives once, in `_sample`; the JAX package keeps two copies of it
 only to steer TPU layouts.
+
+PipelineConfig.warp_quant="int8" stores plane_sweep_warp's bilinear volumes on an int8
+lattice (`quantize_warp`). Nearest sweeps never quantize, and neither does the fused
+bilinear-and-nearest sweep of the refinement (plane_sweep_warp_with_nearest), as in the
+JAX package, whose _maybe_quant_warp only plane_sweep_warp's bilinear branch calls.
 """
 
 from __future__ import annotations
@@ -92,18 +97,40 @@ def _homography_coords(homography: torch.Tensor, height: int, width: int):
     return warped[..., 0, :] / denom, warped[..., 1, :] / denom
 
 
+def quantize_warp(out: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    """The int8 round trip of a bilinear plane-sweep volume out (B, D, H, W, C) warped from
+    image (B, H, W, C) (atvsnet_tpu/geometry/warp.py:_maybe_quant_warp).
+
+    The scale is per (sample, channel), max|image| / 127 + 1e-12 over the source map: the
+    bilinear corner weights are convex and an invalid sample is 0, so the volume never
+    leaves [-127, 127] steps and a zero stays zero. fp32 arithmetic, round half to even,
+    the result in out's dtype; inference only (round() has no gradient).
+    """
+    divisor = torch.full((), 127.0, dtype=torch.float32, device=image.device)
+    s = (image.to(torch.float32).abs().amax(dim=(1, 2), keepdim=True) / divisor
+         + 1e-12)[:, None]                                 # (B, 1, 1, 1, C)
+    q = torch.clamp(torch.round(out.to(torch.float32) / s), -127.0, 127.0).to(torch.int8)
+    return (q.to(torch.float32) * s).to(out.dtype)
+
+
 def plane_sweep_warp(image: torch.Tensor, homographies: torch.Tensor,
-                     method: str = "bilinear", output_mask: bool = False):
+                     method: str = "bilinear", output_mask: bool = False,
+                     quant: str = "none"):
     """Warp (B, H, W, C) by all D plane homographies (B, D, 3, 3).
 
-    Returns (B, D, H, W, C) [+ mask (B, D, H, W, 1)].
+    Returns (B, D, H, W, C) [+ mask (B, D, H, W, 1)]. quant="int8" (PipelineConfig.
+    warp_quant) stores a bilinear volume on quantize_warp's lattice; a nearest one never.
     """
+    if quant not in ("none", "int8"):
+        raise ValueError(f"warp_quant={quant!r}: expected one of none|int8")
     B, H, W, C = image.shape
     D = homographies.shape[1]
     x, y = _homography_coords(homographies, H, W)          # (B, D, HW)
     out, mask = interpolate(image, x.reshape(B, -1), y.reshape(B, -1),
                             method=method, output_mask=True)
     out = out.reshape(B, D, H, W, C)
+    if quant == "int8" and method == "bilinear":
+        out = quantize_warp(out, image)
     return (out, mask.reshape(B, D, H, W, 1)) if output_mask else out
 
 

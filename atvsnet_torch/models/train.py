@@ -25,8 +25,11 @@ and its block of view pairs, and the gradients are summed over the world:
     per-rank losses, as DDP takes, would weigh the ranks wrong whenever their counts differ;
   * every 'view' rank differentiates the same share (the stages after AAM run on each
     of them alike, and the view collectives send each rank's pairs the gradient of the
-    others' copies), so the world's sum counts each data rank's gradient n_view times and
-    is divided by n_view;
+    others' copies), so the world's sum counts each data rank's gradient n_view times;
+  * so does every 'depth' rank: the merged depths are the same on each, and the depth
+    collectives (halos, summed statistics, the soft-argmin's merge) send each rank's
+    planes the gradient of the others' copies. The world's sum counts each data rank's
+    gradient n_view * n_depth times and is divided by that;
   * batch norm takes its statistics per sample and needs no collective.
 """
 
@@ -245,7 +248,7 @@ def loss_and_grads(model: ATVSNet, batch: dict, cfg: PipelineConfig, tcfg: Train
         # one all-reduce of all the gradients over the world (see the module docstring)
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
-        flat /= mesh.n_view
+        flat /= mesh.n_view * mesh.n_depth
         grads = [f.view_as(p) for f, p in zip(flat.split([p.numel() for p in params]), params)]
         loss = metrics["loss"]
     return loss.detach(), metrics, dict(zip(names, grads))

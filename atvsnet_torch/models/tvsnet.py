@@ -3,6 +3,13 @@
 `ATVSNet` holds every parameter of the pipeline; its submodule and parameter names
 mirror the JAX tree (fem/conv0_0/w is fem.conv0_0.w). The functions here take it in
 the place of the JAX package's params dict.
+
+The config's storage quantization reaches the volume ops from here (act_quant as an
+nn.layers.ActQuant, warp_quant as plane_sweep_warp's quant). A depth `split`
+(parallel.depth.DepthSplit) makes every volume this rank's block of planes: the sweeps
+warp those planes only, at their global sweep values, while everything plane-indexed
+(homographies, sweep values, the geometric denominator depth_interval * D, the visual
+hull) reads the global D.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from atvsnet_torch.geometry.warp import (
 from atvsnet_torch.nn.aam import Attention, OutputConv, attention_aggregate_stacked, output_conv
 from atvsnet_torch.nn.crm import CRM
 from atvsnet_torch.nn.fem import FEM, FEMShallow
+from atvsnet_torch.nn.layers import ActQuant
 from atvsnet_torch.nn.refine import RefineNet
 
 
@@ -94,9 +102,14 @@ class PairOutputs(NamedTuple):
     depth_view: torch.Tensor            # (B, h, w, 1) depth of the swapped (view->ref) sweep
 
 
+def _planes(split) -> slice:
+    """This rank's planes of a full-D axis (all of them without a split)."""
+    return slice(None) if split is None else split.planes
+
+
 def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
                 cfg: PipelineConfig, depth_start, depth_interval,
-                ref_depth: bool = True) -> PairOutputs:
+                ref_depth: bool = True, split=None) -> PairOutputs:
     """One view pair through cost volume + CRM, in both directions (siamese: the CRM
     weights are shared, reference model.py:398-417).
 
@@ -105,13 +118,15 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
     materialized. cfg.pair_batch runs the two directions as one batch of 2 (the
     soft-argmin then sees one (2B, D, h, w) volume in the place of two (B, D, h, w)).
     ref_depth=False leaves the reference direction's depth out (depth is None), as the
-    training forward does; it needs the sequential path.
+    training forward does; it needs the sequential path. split: the volumes hold this
+    rank's planes (sequential path only).
     """
     D = cfg.max_d
+    quant = ActQuant.of(cfg)
 
     if cfg.pair_batch:
-        if not ref_depth:
-            raise ValueError("ref_depth=False needs pair_batch=False")
+        if not ref_depth or split is not None:
+            raise ValueError("ref_depth=False and a depth split need pair_batch=False")
         # Both directions as two elements of one batch through one set of CRM convs.
         # Exact, with no group argument anywhere: batch_stat_norm takes its statistics
         # per sample, so each stacked sweep is normalized by itself, as it is alone.
@@ -122,28 +137,32 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
         cam_b = torch.cat([view_cam, ref_cam], dim=0)
         ds2, di2 = depth_start.repeat(2), depth_interval.repeat(2)
         homos = get_homographies(cam_a, cam_b, D, ds2, di2, cfg.inverse_depth)
-        filtered2, prob2 = model.crm((plane_sweep_warp(src, homos), dst), eps=cfg.bn_eps)
+        filtered2, prob2 = model.crm((plane_sweep_warp(src, homos, quant=cfg.warp_quant), dst),
+                                     eps=cfg.bn_eps, quant=quant)
         depth2 = prob2depth(prob2, D, ds2, di2, impl=cfg.softargmin_impl)
         return PairOutputs(depth2[:B], prob2[:B], filtered2[:B], depth2[B:])
 
     def sweep(view_f, ref_c, view_c):
         h = get_homographies(ref_c, view_c, D, depth_start, depth_interval, cfg.inverse_depth)
-        return plane_sweep_warp(view_f, h)
+        return plane_sweep_warp(view_f, h[:, _planes(split)], quant=cfg.warp_quant)
+
+    def regress(prob):
+        return prob2depth(prob, D, depth_start, depth_interval, impl=cfg.softargmin_impl,
+                          split=split)
 
     warped = sweep(view_feature, ref_cam, view_cam)
-    filtered_cost, prob = model.crm((warped, ref_feature), eps=cfg.bn_eps)
-    depth = (prob2depth(prob, D, depth_start, depth_interval, impl=cfg.softargmin_impl)
-             if ref_depth else None)
+    filtered_cost, prob = model.crm((warped, ref_feature), eps=cfg.bn_eps, quant=quant,
+                                    split=split)
+    depth = regress(prob) if ref_depth else None
 
     warped_v = sweep(ref_feature, view_cam, ref_cam)
-    _, prob_view = model.crm((warped_v, view_feature), eps=cfg.bn_eps)
-    depth_view = prob2depth(prob_view, D, depth_start, depth_interval, impl=cfg.softargmin_impl)
-    return PairOutputs(depth, prob, filtered_cost, depth_view)
+    _, prob_view = model.crm((warped_v, view_feature), eps=cfg.bn_eps, quant=quant, split=split)
+    return PairOutputs(depth, prob, filtered_cost, regress(prob_view))
 
 
 def refinement(model: ATVSNet, depth_ref, depth_view, ref_cam, view_cam, shallow_ref,
                shallow_view, prob_vol, cfg: PipelineConfig, depth_start, depth_interval,
-               hull_view_cam: Optional[torch.Tensor] = None):
+               hull_view_cam: Optional[torch.Tensor] = None, split=None):
     """Geometry-aware refinement of one pair (reference model.py:227-339).
 
     depth_ref/depth_view: (B, h, w, 1) initial depths at cost-volume resolution;
@@ -154,14 +173,19 @@ def refinement(model: ATVSNet, depth_ref, depth_view, ref_cam, view_cam, shallow
     instead of the pair's own, reproducing the reference bug where the hull always reads
     camera 1. When None the hull uses the pair's cameras and its nearest warp comes
     from the shared plane-sweep sample.
+
+    split: prob_vol and the returned volumes hold this rank's planes; the depths and the
+    2D errors are the same on every rank.
     """
     D = cfg.max_d
     inv = cfg.inverse_depth
     F = shallow_ref.shape[-1]
     f32 = torch.float32
+    planes = _planes(split)
 
     depth_view_trans = transform_depth(depth_view, view_cam, ref_cam, inv)
-    homographies = get_homographies(ref_cam, view_cam, D, depth_start, depth_interval, inv)
+    homographies = get_homographies(ref_cam, view_cam, D, depth_start, depth_interval,
+                                    inv)[:, planes]
 
     # photometric, geometric and visual-hull sweeps warp the same sources by the same
     # homographies: one sample serves all three
@@ -174,7 +198,8 @@ def refinement(model: ATVSNet, depth_ref, depth_view, ref_cam, view_cam, shallow
         hull_depth = warped_near.to(f32)
     else:
         dvt_hull = transform_depth(depth_view, hull_view_cam, ref_cam, inv)
-        h_hull = get_homographies(ref_cam, hull_view_cam, D, depth_start, depth_interval, inv)
+        h_hull = get_homographies(ref_cam, hull_view_cam, D, depth_start, depth_interval,
+                                  inv)[:, planes]
         hull_depth = plane_sweep_warp(dvt_hull.to(f32), h_hull, method="nearest")
 
     # photometric L1 cost volume over shallow features (model.py:270-280)
@@ -182,7 +207,7 @@ def refinement(model: ATVSNet, depth_ref, depth_view, ref_cam, view_cam, shallow
 
     # geometric L1 depth-consistency volume (model.py:285-300); the reference's
     # F identical view channels stay one channel (the refine net collapses its kernel)
-    sweep = sweep_depths(depth_start.to(f32), depth_interval.to(f32), D)[:, :, None, None, None]
+    sweep = sweep_depths(depth_start.to(f32), depth_interval.to(f32), D)[:, planes, None, None, None]
     denom = (depth_interval.to(f32) * D)[:, None, None, None, None]
     geo_ref = (depth_ref[:, None] - sweep).abs() / denom                 # (B, D, h, w, 1)
     geo_view = (warped_depth - sweep).abs() / denom * mask.to(f32)
@@ -211,32 +236,35 @@ def refinement(model: ATVSNet, depth_ref, depth_view, ref_cam, view_cam, shallow
     geo_group = (torch.cat([geo_ref.to(dt), geo_view.to(dt)], dim=-1),
                  torch.cat([geo_err.to(dt), depth_ref.to(dt)], dim=-1), F)
     return model.refine(photo_group, geo_group, prob_vol[..., None].to(dt),
-                        vis_hull[..., None].to(dt), eps=cfg.bn_eps)
+                        vis_hull[..., None].to(dt), eps=cfg.bn_eps, quant=ActQuant.of(cfg),
+                        split=split)
 
 
 def tvsnet_refine(model: ATVSNet, depth_ref, depth_view, prob_vol, filtered_cost, ref_cam,
                   view_cam, shallow_ref, shallow_view, cfg: PipelineConfig, depth_start,
-                  depth_interval, hull_view_cam: Optional[torch.Tensor] = None):
+                  depth_interval, hull_view_cam: Optional[torch.Tensor] = None, split=None):
     """Residual refinement of (prob, cost) volumes (reference model.py:428-441)."""
     cost_residual, prob_residual = refinement(
         model, depth_ref, depth_view, ref_cam, view_cam, shallow_ref, shallow_view,
-        prob_vol, cfg, depth_start, depth_interval, hull_view_cam=hull_view_cam)
+        prob_vol, cfg, depth_start, depth_interval, hull_view_cam=hull_view_cam, split=split)
     return (prob_vol + prob_residual.to(prob_vol.dtype),
             filtered_cost + cost_residual.to(filtered_cost.dtype))
 
 
 def aam_aggregate_stacked(model: ATVSNet, cost_volumes: torch.Tensor, stage: int,
-                          group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+                          group: Optional[dist.ProcessGroup] = None, split=None) -> torch.Tensor:
     """AAM over the view-leading (P, B, D, h, w, C) stack; stage 1 = AAM1, 2 = AAM2. With a
-    'view' group, the stack holds this rank's pairs and AAM runs over the group's."""
+    'view' group, the stack holds this rank's pairs and AAM runs over the group's; with a
+    depth split, D holds this rank's planes."""
     return attention_aggregate_stacked(model.aam1_att if stage == 1 else model.aam2_att,
-                                       cost_volumes, group)
+                                       cost_volumes, group, split)
 
 
-def aam_output_conv(model: ATVSNet, agg_cost: torch.Tensor, stage: int) -> torch.Tensor:
+def aam_output_conv(model: ATVSNet, agg_cost: torch.Tensor, stage: int,
+                    split=None) -> torch.Tensor:
     if stage == 1:
-        return output_conv(model.aam1_out, "attention_prob_vol", agg_cost)
-    return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost)
+        return output_conv(model.aam1_out, "attention_prob_vol", agg_cost, split)
+    return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost, split)
 
 
 @torch.no_grad()

@@ -12,6 +12,8 @@ With the pairs split over the ranks of a 'view' group (parallel.mesh), every sum
 views is a local sum followed by an all-reduce over the group: the shared-weight sum,
 the softmax's max and normaliser, and the weighted sum. Those that carry gradient go
 through torch.distributed.nn's all-reduce, whose backward all-reduces the gradient.
+With the D planes split over a 'depth' group (parallel.depth), the two 3x3x3 convs
+exchange halos; the softmax over views is per plane and needs no collective over D.
 """
 
 from __future__ import annotations
@@ -44,16 +46,18 @@ class OutputConv(tnn.Module):
 
 
 def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
-                                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+                                group: Optional[dist.ProcessGroup] = None,
+                                split=None) -> torch.Tensor:
     """View-leading stack (N, B, D, h, w, C) -> (B, D, h, w, C).
 
     With a `group`, x holds this rank's views and the result is over the group's views.
+    With a depth `split`, D holds this rank's planes.
     """
     N, B, C = x.shape[0], x.shape[1], x.shape[-1]
     xv = x.reshape((N * B,) + x.shape[2:])
     # [unique | shared] stacked on the output-channel axis: one conv for both
     w_cat = torch.cat([att.weight_unique, att.weight_shared], dim=0)
-    both = L.conv(xv, w_cat, relu=True).reshape(x.shape[:-1] + (2 * C,))
+    both = L.conv(xv, w_cat, relu=True, split=split).reshape(x.shape[:-1] + (2 * C,))
     unique, shared = both[..., :C], both[..., C:]
     if group is None:
         act = (unique - shared + shared.sum(dim=0, keepdim=True)).to(torch.float32)
@@ -71,6 +75,7 @@ def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
     return all_reduce_sum(torch.sum(score.to(x.dtype) * x, dim=0, dtype=f32), group).to(x.dtype)
 
 
-def output_conv(module: OutputConv, name: str, cost_volume: torch.Tensor) -> torch.Tensor:
+def output_conv(module: OutputConv, name: str, cost_volume: torch.Tensor,
+                split=None) -> torch.Tensor:
     """(B, D, h, w, C) -> (B, D, h, w)."""
-    return L.conv(cost_volume, getattr(module, name).w)[..., 0]
+    return L.conv(cost_volume, getattr(module, name).w, split=split)[..., 0]

@@ -48,19 +48,26 @@ class CRM(tnn.Module):
                     self.add_module(name, L.Deconv(3, cin, cout, nd=3, generator=generator))
         self.conv_b2_6_2 = L.Conv(3, f, 1, nd=3, generator=generator) if prob_output else None
 
-    def forward(self, cost_volume, eps: float = 1e-3):
+    def forward(self, cost_volume, eps: float = 1e-3, quant: Optional[L.ActQuant] = None,
+                split=None):
         """(B, D, h, w, C) -> (filtered cost (B, D, h, w, f), prob (B, D, h, w) or None).
 
         `cost_volume` may be a (warped (B, D, h, w, Cv), ref_feature (B, h, w, Cc)) tuple:
         the reference volume is concat(tile_D(ref_feature), warped), whose D-constant
         half enters the two input convs as 2D convs (layers.conv3d_mixed).
+
+        quant: every conv_bn / deconv_bn link is stored on an int8 lattice (the mixed
+        entry convs too, as the JAX package's closure quantizes them). split: D holds this
+        rank's planes of a 'depth' mesh axis (parallel.depth), at every level.
         """
 
         def cbn(name, x, stride=1):
-            return L.conv_bn(x, getattr(self, name).w, stride=stride, eps=eps)
+            return L.conv_bn(x, getattr(self, name).w, stride=stride, eps=eps, quant=quant,
+                             split=split)
 
         def dbn(name, x):
-            return L.deconv_bn(x, getattr(self, name).w, stride=2, eps=eps)
+            return L.deconv_bn(x, getattr(self, name).w, stride=2, eps=eps, quant=quant,
+                               split=split)
 
         # --- block 0 ---
         if isinstance(cost_volume, tuple):
@@ -71,7 +78,8 @@ class CRM(tnn.Module):
                 w = getattr(self, name).w
                 # kernel in-channel order is [ref_tile, warped] (the reference's concat)
                 reordered = torch.cat([w[:, Cc:], w[:, :Cc]], dim=1)
-                return L.conv3d_mixed_bn(reordered, warped, ref2d, stride=stride, eps=eps)
+                return L.conv3d_mixed_bn(reordered, warped, ref2d, stride=stride, eps=eps,
+                                         quant=quant, split=split)
 
             b0_1_0 = mixed("conv_b0_1_0", 2)
             b0_0_1 = mixed("conv_b0_0_1", 1)
@@ -116,4 +124,4 @@ class CRM(tnn.Module):
 
         if self.conv_b2_6_2 is None:
             return b2_6_1, None
-        return b2_6_1, L.conv(b2_6_1, self.conv_b2_6_2.w)[..., 0]  # no relu, no bias
+        return b2_6_1, L.conv(b2_6_1, self.conv_b2_6_2.w, split=split)[..., 0]  # no relu, no bias

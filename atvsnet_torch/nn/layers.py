@@ -17,12 +17,22 @@ Weights are stored in PyTorch's layout: conv (out, in, k...), transpose conv
     a tie evenly; torch.relu gives a tie no gradient. Ties are real here: batch_stat_norm
     maps a channel that is constant over the map to exact zeros.
 
-The TPU package's depth-tap decompositions of 3D convs and its int8 paths are TPU
-layout work and are not ported: a 3D conv here is one cuDNN conv3d.
+Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
+  * quant (ActQuant, PipelineConfig.act_quant): every volume conv_bn / deconv_bn /
+    conv3d_mixed_bn output round-trips through an int8 lattice (`quantize_act`, the JAX
+    package's _maybe_quant_act);
+  * split (parallel.depth.DepthSplit): the volume holds this rank's block of the D planes
+    of a 'depth' mesh axis; convs and transposed convs exchange one halo plane with their
+    neighbours, batch_stat_norm sums its statistics over the depth group.
+
+The TPU package's depth-tap decompositions of 3D convs and its int8 MXU convolutions
+(act_quant="int8mxu") are TPU layout work and are not ported: a 3D conv here is one
+cuDNN conv3d.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -75,9 +85,22 @@ def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pa
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-         stride: int = 1, rate: int = 1, relu: bool = False) -> torch.Tensor:
-    """Rank-dispatching TF-SAME conv on channel-last x; w is (out, in, k...)."""
-    pads = [_same_pads(s, k, stride, rate) for s, k in zip(x.shape[1:-1], w.shape[2:])]
+         stride: int = 1, rate: int = 1, relu: bool = False, split=None) -> torch.Tensor:
+    """Rank-dispatching TF-SAME conv on channel-last x; w is (out, in, k...).
+
+    split: x is this rank's block of D planes (a 5D volume, a k3 kernel, stride 1 or 2).
+    TF-SAME pads D by (1, 1) at stride 1 and by (0, 1) at stride 2 on an even D, so the
+    block takes one plane from each neighbour, or from its right one only, and zeros at
+    the global ends."""
+    if split is not None and x.ndim == 5:
+        if w.shape[2] != 3 or rate != 1 or stride not in (1, 2) or x.shape[1] % stride:
+            raise ValueError(f"a depth-split conv needs a depth kernel of 3, rate 1 and "
+                             f"stride 1 or 2 on an even block; got k={w.shape[2]}, "
+                             f"rate={rate}, stride={stride}, planes={x.shape[1]}")
+        x = split.halo(x, left=1 if stride == 1 else 0, right=1)
+        pads = [(0, 0)] + [_same_pads(s, k, stride) for s, k in zip(x.shape[2:-1], w.shape[3:])]
+    else:
+        pads = [_same_pads(s, k, stride, rate) for s, k in zip(x.shape[1:-1], w.shape[2:])]
     y = _padded_conv(x, w, b, stride, rate, pads)
     return activate(y) if relu else y
 
@@ -93,13 +116,21 @@ def fixed_pad_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] =
 
 
 def batch_stat_norm(x: torch.Tensor, eps: float = 1e-3,
-                    beta: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    beta: Optional[torch.Tensor] = None, split=None) -> torch.Tensor:
     """Normalize by per-sample statistics over the spatial axes (training-mode BN at
-    batch 1, the only regime the reference runs). Statistics accumulate in fp32."""
+    batch 1, the only regime the reference runs). Statistics accumulate in fp32; with a
+    depth split (a 5D x) the sums and E[x^2]'s are summed over the depth group first."""
     axes = tuple(range(1, x.ndim - 1))
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=axes, keepdim=True)
-    var = xf.square().mean(dim=axes, keepdim=True) - mean.square()
+    if split is not None and x.ndim == 5:
+        count = math.prod(x.shape[1:-1]) * split.size
+        sums = split.all_sum(torch.stack([xf.sum(dim=axes, keepdim=True),
+                                          xf.square().sum(dim=axes, keepdim=True)]))
+        mean = sums[0] / count
+        var = sums[1] / count - mean.square()
+    else:
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = xf.square().mean(dim=axes, keepdim=True) - mean.square()
     if x.dtype == torch.float32:
         y = (x - mean) * torch.rsqrt(var + eps)
     else:
@@ -109,23 +140,87 @@ def batch_stat_norm(x: torch.Tensor, eps: float = 1e-3,
     return y
 
 
+@dataclasses.dataclass(frozen=True)
+class ActQuant:
+    """Storage quantization of the volume links (PipelineConfig.act_quant "int8" or
+    "int8s", and act_quant_range)."""
+
+    mode: str
+    range: float = 6.0
+
+    @classmethod
+    def of(cls, cfg) -> Optional["ActQuant"]:
+        """The config's quantization, or None for act_quant="none"."""
+        return None if cfg.act_quant == "none" else cls(cfg.act_quant, cfg.act_quant_range)
+
+
+def _scalar(v: float, device) -> torch.Tensor:
+    """An fp32 scalar on `device`: a divisor there divides element by element, where a
+    Python float may be turned into a multiply by its reciprocal (CUDA does)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
+def quantize_act(y: torch.Tensor, quant: Optional[ActQuant], nonneg: bool = False,
+                 split=None) -> torch.Tensor:
+    """The int8 round trip of a 5D volume link (atvsnet_tpu/nn/layers.py:_maybe_quant_act);
+    anything else, or quant None, passes unchanged.
+
+      int8   a dynamic per-tensor scale, max|y| / 127 + 1e-12 (over the depth group with
+             a split), onto [-127, 127];
+      int8s  a static scale: range / 255 onto [0, 255] for a relu link (nonneg), range /
+             127 onto [-127, 127] otherwise.
+
+    fp32 arithmetic with the scale as an fp32 scalar, as the JAX package's weakly typed
+    Python floats give it, and round half to even in both: the same y gives the same bits.
+    The result has y's dtype. Inference only: round() has no gradient.
+    """
+    if quant is None or y.ndim != 5:
+        return y
+    yf = y.to(torch.float32)
+    if quant.mode == "int8":
+        peak = yf.abs().amax()
+        if split is not None:
+            peak = split.all_max(peak)
+        s = peak / _scalar(127.0, y.device) + 1e-12
+        lo, hi = -127.0, 127.0
+    elif quant.mode == "int8s":
+        s = _scalar(quant.range / (255.0 if nonneg else 127.0), y.device)
+        lo, hi = (0.0, 255.0) if nonneg else (-127.0, 127.0)
+    else:
+        raise ValueError(f"act_quant={quant.mode!r}: expected int8 or int8s")
+    q = torch.clamp(torch.round(yf / s), lo, hi).to(torch.uint8 if lo == 0.0 else torch.int8)
+    return (q.to(torch.float32) * s).to(y.dtype)
+
+
 def conv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 1, rate: int = 1,
-            relu: bool = True, eps: float = 1e-3) -> torch.Tensor:
-    """conv -> batch_stat_norm -> relu (reference network.py:172-215)."""
-    y = batch_stat_norm(conv(x, w, stride=stride, rate=rate), eps=eps)
-    return activate(y) if relu else y
+            relu: bool = True, eps: float = 1e-3, quant: Optional[ActQuant] = None,
+            split=None) -> torch.Tensor:
+    """conv -> batch_stat_norm -> relu (reference network.py:172-215) -> quantize_act."""
+    y = batch_stat_norm(conv(x, w, stride=stride, rate=rate, split=split), eps=eps, split=split)
+    return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 
-def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False) -> torch.Tensor:
+def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False,
+           split=None) -> torch.Tensor:
     """TF conv{2,3}d_transpose, SAME: the transpose of the SAME strided conv from the
     stride-times larger output. w is PyTorch's transpose layout (in, out, k...).
 
     PyTorch's conv_transpose with padding 0 covers the forward conv's padded input;
     cropping [pad_beg, pad_beg + out) removes the SAME padding (pad_beg = 0 for k3 s2).
+
+    split (a 5D x, k3 s2): output plane 2i takes inputs i and i - 1, so the block takes
+    its left neighbour's last plane (zeros at the global start) and the crop on D starts
+    `stride` planes later.
     """
     nd = x.ndim - 2
     out_sizes = [s * stride for s in x.shape[1:-1]]
     begs = [_same_pads(o, k, stride)[0] for o, k in zip(out_sizes, w.shape[2:])]
+    if split is not None and x.ndim == 5:
+        if w.shape[2] != 3 or stride != 2:
+            raise ValueError(f"a depth-split deconv needs k=3, stride 2; got "
+                             f"k={w.shape[2]}, stride={stride}")
+        begs[0] = _same_pads(out_sizes[0] * split.size, 3, stride)[0] + stride
+        x = split.halo(x, left=1, right=0)
     y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
     y = y[(slice(None), slice(None)) + tuple(slice(b, b + o) for b, o in zip(begs, out_sizes))]
     y = _channels_last(y)
@@ -133,9 +228,9 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
 
 
 def deconv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = True,
-              eps: float = 1e-3) -> torch.Tensor:
-    y = batch_stat_norm(deconv(x, w, stride=stride), eps=eps)
-    return activate(y) if relu else y
+              eps: float = 1e-3, quant: Optional[ActQuant] = None, split=None) -> torch.Tensor:
+    y = batch_stat_norm(deconv(x, w, stride=stride, split=split), eps=eps, split=split)
+    return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 
 def avg_pool_same(x: torch.Tensor, pool: int, stride: int) -> torch.Tensor:
@@ -164,40 +259,55 @@ def max_pool_same(x: torch.Tensor, pool: int, stride: int) -> torch.Tensor:
 
 
 def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
-                 stride: int = 1) -> torch.Tensor:
+                 stride: int = 1, split=None) -> torch.Tensor:
     """conv3d over concat([varying, broadcast_D(const2d)], -1) without the broadcast.
 
     The D-constant channels reduce to 2D convs with the kernel summed over its depth
     taps (exact, including TF-SAME zero padding on D). w: (Cout, Cv + Cc, 3, kh, kw);
     varying: (B, D, h, w, Cv); const2d: (B, h, w, Cc).
+
+    With a depth split, varying holds this rank's planes: its half exchanges halos (conv),
+    and the edge taps are left out only at the global ends, on the first and last rank;
+    planes beside a seam between ranks take all three taps. The split path subtracts the
+    missing tap's 2D conv where a mask over the planes says so, the same operations on
+    every rank (see parallel.depth.DepthSplit.halo for why that matters).
     """
     if w.shape[2] != 3:
         raise ValueError("conv3d_mixed needs a depth kernel of 3")
     Cv = varying.shape[-1]
     D = varying.shape[1]
+    if stride not in (1, 2) or D % stride:
+        raise ValueError(f"conv3d_mixed supports stride 1, or 2 on even D; got {stride}, D={D}")
     wc = w[:, Cv:]
-    y = conv(varying, w[:, :Cv], stride=stride)            # (B, D', h', w', Cout)
+    y = conv(varying, w[:, :Cv], stride=stride, split=split)   # (B, D', h', w', Cout)
 
     def conv2(taps):
         return conv(const2d, sum(wc[:, :, t] for t in taps), stride=stride)
 
     mid = conv2((0, 1, 2))[:, None]
-    if stride == 1:
-        # SAME pad (1, 1) on D: d = 0 misses tap 0, d = D-1 misses tap 2
-        parts = [conv2((1, 2))[:, None], mid.expand(-1, D - 2, -1, -1, -1),
-                 conv2((0, 1))[:, None]]
-    elif stride == 2 and D % 2 == 0:
-        # SAME pad (0, 1) on D: only the last output misses tap 2
-        parts = [mid.expand(-1, D // 2 - 1, -1, -1, -1), conv2((0, 1))[:, None]]
-    else:
-        raise ValueError(f"conv3d_mixed supports stride 1, or 2 on even D; got {stride}, D={D}")
-    return y + torch.cat(parts, dim=1)
+    Do = D // stride
+    # SAME pads D by (1, 1) at stride 1: the first plane misses tap 0, the last tap 2; by
+    # (0, 1) at stride 2: only the last output misses tap 2
+    if split is None:
+        head = [conv2((1, 2))[:, None]] if stride == 1 else []
+        parts = head + [mid.expand(-1, Do - len(head) - 1, -1, -1, -1), conv2((0, 1))[:, None]]
+        return y + torch.cat(parts, dim=1)
+    shape = (1, Do, 1, 1, 1)
+    first = torch.zeros(shape, dtype=y.dtype, device=y.device)
+    last = torch.zeros(shape, dtype=y.dtype, device=y.device)
+    if stride == 1 and split.is_first:
+        first[:, 0] = 1
+    if split.is_last:
+        last[:, -1] = 1
+    return y + (mid - first * conv2((0,))[:, None] - last * conv2((2,))[:, None])
 
 
 def conv3d_mixed_bn(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
-                    stride: int = 1, relu: bool = True, eps: float = 1e-3) -> torch.Tensor:
-    y = batch_stat_norm(conv3d_mixed(w, varying, const2d, stride=stride), eps=eps)
-    return activate(y) if relu else y
+                    stride: int = 1, relu: bool = True, eps: float = 1e-3,
+                    quant: Optional[ActQuant] = None, split=None) -> torch.Tensor:
+    y = batch_stat_norm(conv3d_mixed(w, varying, const2d, stride=stride, split=split), eps=eps,
+                        split=split)
+    return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,8 @@ class RefineNet(tnn.Module):
         return getattr(self, _P + name).w
 
     def forward(self, photo_group, geo_group, prob_vol: torch.Tensor,
-                vis_hull: torch.Tensor, eps: float = 1e-3):
+                vis_hull: torch.Tensor, eps: float = 1e-3, quant: Optional[L.ActQuant] = None,
+                split=None):
         """All inputs (B, D, h, w, *) -> (cost_residual (B,D,h,w,f), prob_residual (B,D,h,w)).
 
         Structured (broadcast-free) groups, exact equivalents of the reference concats:
@@ -52,22 +53,27 @@ class RefineNet(tnn.Module):
           geo_group = (varying (B,D,h,w,2), const2d (B,h,w,2), F): the geometric view
             term is one channel broadcast to F in the reference, so the kernel collapses
             over those F in-channels.
+        quant and split as in CRM.forward: every bn link, the four entries included, is
+        quantized (the JAX package quantizes its hand-written geo entry too).
         """
 
         def cbn(name, x, stride=1):
-            return L.conv_bn(x, self._w(name), stride=stride, eps=eps)
+            return L.conv_bn(x, self._w(name), stride=stride, eps=eps, quant=quant, split=split)
 
         def dbn(name, x):
-            return L.deconv_bn(x, self._w(name), stride=2, eps=eps)
+            return L.deconv_bn(x, self._w(name), stride=2, eps=eps, quant=quant, split=split)
+
+        def mixed(w, vary, const2d):
+            return L.conv3d_mixed_bn(w, vary, const2d, eps=eps, quant=quant, split=split)
 
         vary, const2d = photo_group
-        photo = L.conv3d_mixed_bn(self._w("_photo_3dconv"), vary, const2d, eps=eps)
+        photo = mixed(self._w("_photo_3dconv"), vary, const2d)
 
         vary, const2d, F = geo_group
         # in-channels [geo_ref(1), geo_view(F), geo_err(1), ref_depth(1)]
         w = self._w("_geo_3dconv")
         w_eff = torch.cat([w[:, 0:1], w[:, 1:1 + F].sum(dim=1, keepdim=True), w[:, 1 + F:]], dim=1)
-        geo = L.conv3d_mixed_bn(w_eff, vary, const2d, eps=eps)
+        geo = mixed(w_eff, vary, const2d)
 
         x = torch.cat([photo, geo, cbn("_prob_3dconv", prob_vol),
                        cbn("_vishull_3dconv", vis_hull)], dim=-1)
@@ -82,4 +88,4 @@ class RefineNet(tnn.Module):
         c5_0 = dbn("_3dconv5_0", c4_0 + c2_1)
         c6_0 = dbn("_3dconv6_0", c5_0 + c1_1)
         c6_1 = c6_0 + c0_1  # cost residual (B, D, h, w, f)
-        return c6_1, L.conv(c6_1, self._w("d_cost_vol"))[..., 0]
+        return c6_1, L.conv(c6_1, self._w("d_cost_vol"), split=split)[..., 0]

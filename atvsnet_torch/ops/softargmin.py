@@ -23,6 +23,19 @@ The gradient: `softargmin_backward_cuda` launches the backward kernel of the sam
 `softargmin_backward_torch` is its plain version. `SoftArgminFunction` ties a forward and
 a backward together for autograd; `softargmin` uses it on the kernel's route whenever
 gradients are being recorded for the cost, and the direct launch otherwise.
+
+Over a D split across the ranks of a 'depth' mesh axis (parallel.depth.DepthSplit) each
+rank holds planes [offset, offset + D_local) of the cost, and two more entry points of the
+same source serve it:
+  * `softargmin_partial_cuda`: the online-softmax triple of the rank's slice per pixel,
+    (max of -cost, sum of exp, sum of sweep * exp) with the sweep at global plane indices;
+    `merge_partials` merges the ranks' triples (plain PyTorch on (B, h, w) maps, two
+    all-reduces) into the depth and the global (max, sum);
+  * `softargmin_backward_stats_cuda`: the slice's gradient from the global (max, sum), the
+    merged depth and the incoming gradient, in one pass (no recomputed max or sum).
+`softargmin_partial_torch` and `softargmin_backward_stats_torch` are their plain versions;
+the two launchers count their launches as the others do; `SplitSoftArgminFunction` ties
+them together for autograd.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "softargmin.cu"
@@ -88,15 +102,24 @@ def _library() -> ctypes.CDLL:
             for fn in (lib.atvsnet_softargmin_backward_f32, lib.atvsnet_softargmin_backward_bf16):
                 fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            for fn in (lib.atvsnet_softargmin_partial_f32, lib.atvsnet_softargmin_partial_bf16):
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            for fn in (lib.atvsnet_softargmin_backward_stats_f32,
+                       lib.atvsnet_softargmin_backward_stats_bf16):
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             lib.atvsnet_softargmin_noop.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.atvsnet_softargmin_noop.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def sweep(depth_num: int, depth_start: torch.Tensor, depth_interval: torch.Tensor) -> torch.Tensor:
-    """(B, D) fp32 sweep values start + d * interval."""
-    steps = torch.arange(depth_num, device=depth_start.device, dtype=torch.float32)
+def sweep(depth_num: int, depth_start: torch.Tensor, depth_interval: torch.Tensor,
+          offset: int = 0) -> torch.Tensor:
+    """(B, D) fp32 sweep values start + d * interval, d = offset .. offset + D - 1."""
+    steps = torch.arange(offset, offset + depth_num, device=depth_start.device,
+                         dtype=torch.float32)
     return (depth_start.to(torch.float32)[:, None]
             + steps[None] * depth_interval.to(torch.float32)[:, None])
 
@@ -116,7 +139,7 @@ def softargmin_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
     return torch.sum(s[:, :, None, None] * p, dim=1)[..., None]
 
 
-def _finite_or_zero(m: torch.Tensor) -> torch.Tensor:
+def finite_or_zero(m: torch.Tensor) -> torch.Tensor:
     """The reference point of every exponent: the max, or 0 where nothing finite was seen."""
     return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
 
@@ -144,12 +167,12 @@ def softargmin_split_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
         for d0 in range(begin, end, chunk):
             vc, sc = v[:, d0:min(end, d0 + chunk)], s[:, d0:min(end, d0 + chunk)]
             cm = torch.maximum(m, vc.amax(dim=1))
-            ref = _finite_or_zero(cm)
+            ref = finite_or_zero(cm)
             r = torch.exp(m - ref)
             e = torch.exp(vc - ref[:, None])
             total, num, m = total * r + e.sum(dim=1), num * r + (sc * e).sum(dim=1), cm
         triples.append((m, total, num))
-    ref = _finite_or_zero(torch.stack([m for m, _, _ in triples]).amax(dim=0))
+    ref = finite_or_zero(torch.stack([m for m, _, _ in triples]).amax(dim=0))
     weights = [torch.exp(m - ref) for m, _, _ in triples]
     total = sum(t * wt for (_, t, _), wt in zip(triples, weights))
     num = sum(n * wt for (_, _, n), wt in zip(triples, weights))
@@ -258,9 +281,107 @@ def softargmin_backward_cuda(cost_volume: torch.Tensor, depth_start: torch.Tenso
     return out
 
 
+# ---- the soft-argmin over a D split across ranks ----
+
+def softargmin_partial_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                             depth_interval: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Plain version of the partial forward: cost (B, D_local, h, w), planes offset ..
+    offset + D_local - 1 of the sweep -> (3, B, h, w) fp32: the max of -cost, and the sums
+    of exp(-cost - ref) and of sweep * exp(-cost - ref), ref = the max, or 0 where every
+    plane is +inf (then the triple is (-inf, 0, 0))."""
+    v = -cost_volume.to(_compute_dtype(cost_volume))
+    m = v.amax(dim=1)
+    e = torch.exp(v - finite_or_zero(m)[:, None])
+    s = sweep(v.shape[1], depth_start, depth_interval, offset)[:, :, None, None]
+    return torch.stack([m, e.sum(dim=1), (s * e).sum(dim=1)])
+
+
+def merge_partials(triple: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge the ranks' partial triples (3, B, h, w) over `group` (None: one rank):
+    (depth (B, h, w, 1), stats (2, B, h, w): the global max and the global sum taken
+    against finite_or_zero of it). A pixel whose planes are all +inf on every rank is
+    NaN, as in softargmin_torch. Two all-reduces, no gradient: SplitSoftArgminFunction
+    differentiates it."""
+    m = triple[0].clone()
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    sums = triple[1:] * torch.exp(triple[0] - finite_or_zero(m))
+    if group is not None:
+        dist.all_reduce(sums, group=group)
+    return (sums[1] / sums[0])[..., None], torch.stack([m, sums[0]])
+
+
+def softargmin_backward_stats_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                                    depth_interval: torch.Tensor, offset: int,
+                                    stats: torch.Tensor, depth: torch.Tensor,
+                                    grad: torch.Tensor) -> torch.Tensor:
+    """Plain version of the stats-fed backward: -grad * p_d * (sweep_d - depth) on the
+    slice, p_d = exp(-cost_d - ref) / sum with (max, sum) = stats (2, B, h, w) the merged
+    ones (ref = finite_or_zero(max)); depth and grad (B, h, w, 1) -> (B, D_local, h, w) in
+    the cost's dtype."""
+    dtype = _compute_dtype(cost_volume)
+    ref, total = finite_or_zero(stats[0]).to(dtype), stats[1].to(dtype)
+    p = torch.exp(-cost_volume.to(dtype) - ref[:, None]) / total[:, None]
+    s = sweep(cost_volume.shape[1], depth_start, depth_interval, offset)[:, :, None, None]
+    g, d = grad.to(dtype)[..., 0][:, None], depth.to(dtype)[..., 0][:, None]
+    return (-(g * p) * (s - d)).to(cost_volume.dtype)
+
+
+def softargmin_partial_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                            depth_interval: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Launch the partial forward kernel: the inputs of `softargmin_cuda` and the slice's
+    first global plane -> (3, B, h, w) fp32, as softargmin_partial_torch. Paths as the
+    forward's (`kernel_path`)."""
+    _check_launch_inputs("softargmin_partial_cuda", cost_volume, depth_start, depth_interval)
+    B, D, h, w = cost_volume.shape
+    fn = getattr(_library(), "atvsnet_softargmin_partial_" + _dtype_suffix(cost_volume.dtype))
+    path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
+    out = torch.empty((3, B, h, w), device=cost_volume.device, dtype=torch.float32)
+    with torch.cuda.device(cost_volume.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cost_volume.data_ptr(), depth_start.data_ptr(), depth_interval.data_ptr(),
+                 out.data_ptr(), B, D, h * w, int(offset), int(path == "aligned"), stream)
+    if err != 0:
+        raise RuntimeError(f"softargmin partial kernel launch failed on the {path} path: "
+                           f"cudaError {err}")
+    _count(softargmin_partial_cuda, path, (B, D, h, w))
+    return out
+
+
+def softargmin_backward_stats_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                                   depth_interval: torch.Tensor, offset: int,
+                                   stats: torch.Tensor, depth: torch.Tensor,
+                                   grad: torch.Tensor) -> torch.Tensor:
+    """Launch the stats-fed backward kernel: the inputs of softargmin_backward_stats_torch,
+    stats (2, B, h, w), depth and grad (B, h, w, 1), all fp32 contiguous -> the slice's
+    gradient (B, D_local, h, w) in the cost's dtype."""
+    _check_launch_inputs("softargmin_backward_stats_cuda", cost_volume, depth_start,
+                         depth_interval, maps=(("depth", depth), ("grad", grad)))
+    B, D, h, w = cost_volume.shape
+    if (stats.device != cost_volume.device or stats.dtype != torch.float32
+            or tuple(stats.shape) != (2, B, h, w) or not stats.is_contiguous()):
+        raise ValueError(f"stats must be (2, {B}, {h}, {w}) float32 contiguous on "
+                         f"{cost_volume.device}, got {tuple(stats.shape)} {stats.dtype} on "
+                         f"{stats.device}")
+    fn = getattr(_library(), "atvsnet_softargmin_backward_stats_" + _dtype_suffix(cost_volume.dtype))
+    path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
+    out = torch.empty_like(cost_volume)
+    with torch.cuda.device(cost_volume.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cost_volume.data_ptr(), depth_start.data_ptr(), depth_interval.data_ptr(),
+                 stats.data_ptr(), depth.data_ptr(), grad.data_ptr(), out.data_ptr(), B, D,
+                 h * w, int(offset), int(path == "aligned"), stream)
+    if err != 0:
+        raise RuntimeError(f"softargmin stats-fed backward kernel launch failed on the {path} "
+                           f"path: cudaError {err}")
+    _count(softargmin_backward_stats_cuda, path, (B, D, h, w))
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counts (total, per path, per volume shape) to 0."""
-    for fn in (softargmin_cuda, softargmin_backward_cuda):
+    """Set every kernel's launch counts (total, per path, per volume shape) to 0."""
+    for fn in (softargmin_cuda, softargmin_backward_cuda, softargmin_partial_cuda,
+               softargmin_backward_stats_cuda):
         fn.launches = 0
         fn.path_launches = dict.fromkeys(PATHS, 0)
         fn.shape_launches = {}
@@ -311,21 +432,62 @@ class SoftArgminFunction(torch.autograd.Function):
                 None, None)
 
 
+class SplitSoftArgminFunction(torch.autograd.Function):
+    """Soft-argmin over a D split across a depth group, for autograd.
+
+    `apply(cost, depth_start, depth_interval, split, use_kernel)`: cost (B, D_local, h, w),
+    this rank's planes split.planes of split.depth_num -> the merged depth (B, h, w, 1)
+    fp32, the same on every rank. The forward is the partial forward (kernel, or its plain
+    version when use_kernel is False) and merge_partials. Every rank of the group
+    differentiates its copy of the depth, so the backward first sums the incoming
+    gradient over the group (the adjoint of handing every rank the merged value, as
+    torch.distributed.nn's all-reduce takes it), then writes the slice's gradient with the
+    stats-fed backward. As SoftArgminFunction, the gradient reaches the cost only.
+    """
+
+    @staticmethod
+    def forward(ctx, cost_volume, depth_start, depth_interval, split, use_kernel):
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            raise ValueError("the soft-argmin's gradient reaches the cost only: depth_start "
+                             "and depth_interval must not require grad")
+        partial = softargmin_partial_cuda if use_kernel else softargmin_partial_torch
+        depth, stats = merge_partials(partial(cost_volume, depth_start, depth_interval,
+                                              split.offset), split.group)
+        ctx.save_for_backward(cost_volume, depth_start, depth_interval, stats, depth)
+        ctx.split, ctx.use_kernel = split, use_kernel
+        return depth
+
+    @staticmethod
+    def backward(ctx, grad):
+        cost_volume, depth_start, depth_interval, stats, depth = ctx.saved_tensors
+        grad = grad.to(torch.float32).contiguous().clone()
+        if ctx.split.group is not None:
+            dist.all_reduce(grad, group=ctx.split.group)
+        fn = softargmin_backward_stats_cuda if ctx.use_kernel else softargmin_backward_stats_torch
+        return (fn(cost_volume, depth_start, depth_interval, ctx.split.offset, stats, depth, grad),
+                None, None, None, None)
+
+
 def softargmin(cost_volume: torch.Tensor, depth_num: int, depth_start: torch.Tensor,
-               depth_interval: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+               depth_interval: torch.Tensor, impl: str = "auto", split=None) -> torch.Tensor:
     """prob2depth(out_prob_map=False): cost (B, D, h, w) -> depth (B, h, w, 1) fp32.
 
     On the kernel's route ("cuda", or "auto" with a CUDA tensor) a cost that gradients are
     recorded for goes through SoftArgminFunction (forward and backward kernels); otherwise
     the forward kernel is launched directly. The plain route is softargmin_torch, whose
-    gradient autograd derives."""
-    if cost_volume.shape[1] != depth_num:
-        raise ValueError(f"cost volume has {cost_volume.shape[1]} planes, expected {depth_num}")
+    gradient autograd derives. With a depth `split` (parallel.depth.DepthSplit) the cost
+    holds this rank's planes and SplitSoftArgminFunction runs, on the kernels or, on the
+    plain route, on their plain versions."""
+    planes = cost_volume.shape[1] * (1 if split is None else split.size)
+    if planes != depth_num:
+        raise ValueError(f"cost volume has {planes} planes, expected {depth_num}")
     use_kernel = {"auto": cost_volume.device.type == "cuda", "cuda": True, "torch": False}[impl]
-    if not use_kernel:
+    if split is None and not use_kernel:
         return softargmin_torch(cost_volume, depth_start, depth_interval)
     args = (cost_volume.contiguous(), depth_start.to(torch.float32).contiguous(),
             depth_interval.to(torch.float32).contiguous())
+    if split is not None:
+        return SplitSoftArgminFunction.apply(*args, split, use_kernel)
     if torch.is_grad_enabled() and cost_volume.requires_grad:
         return SoftArgminFunction.apply(*args)
     return softargmin_cuda(*args)

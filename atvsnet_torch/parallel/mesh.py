@@ -1,14 +1,18 @@
 """The device mesh over torch.distributed (atvsnet_tpu/parallel/mesh.py).
 
-One process per device, as torchrun starts them. The mesh has two axes:
+One process per device, as torchrun starts them. The mesh has two axes, or three:
 
   'data'  scenes / reference images: each data rank runs its own rows of the batch.
   'view'  the N-1 view pairs of stages 1 and 3: each view rank runs a contiguous block
           of them. They meet only inside the attention aggregation, whose cross-view
           terms become all-reduces over the view group (nn.aam).
+  'depth' (n_depth > 1 only) the D sweep planes of every volume: each depth rank holds a
+          contiguous block of them, with halo exchanges, summed statistics and a merged
+          soft-argmin across the seams (parallel.depth). An HBM alternative to remat.
 
-Ranks are laid out row-major over (data, view): rank = data_rank * n_view + view_rank,
-so the ranks of one data group are the n_view ranks that share its rows.
+Ranks are laid out row-major over (data, view[, depth]), as the JAX package reshapes its
+devices: rank = (data_rank * n_view + view_rank) * n_depth + depth_rank, so the ranks of
+one depth group are neighbours and those of one data group share its rows.
 
 The backend follows the device: NCCL for CUDA, gloo for the CPU. A CUDA mesh whose
 process group cannot start raises; nothing falls back to another backend or device.
@@ -30,6 +34,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from atvsnet_torch import resolve_device
 
 AXES = ("data", "view")
+AXES_DEPTH = AXES + ("depth",)
 
 
 def parse_mesh_spec(spec: str) -> tuple[int, int]:
@@ -67,7 +72,7 @@ def block(n: int, parts: int, index: int) -> slice:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the (data, view) mesh, its device and its two groups."""
+    """This rank's place in the (data, view[, depth]) mesh, its device and its groups."""
 
     device_mesh: DeviceMesh
     device: torch.device
@@ -89,6 +94,20 @@ class Mesh:
         return self.device_mesh.get_local_rank("view")
 
     @property
+    def n_depth(self) -> int:
+        return self.device_mesh.size(2) if self.device_mesh.ndim == 3 else 1
+
+    @property
+    def depth_rank(self) -> int:
+        return self.device_mesh.get_local_rank("depth") if self.device_mesh.ndim == 3 else 0
+
+    @property
+    def depth_group(self) -> Optional[dist.ProcessGroup]:
+        """The ranks that hold the other planes of these rows and pairs (None when 'depth'
+        has extent 1)."""
+        return self.device_mesh.get_group("depth") if self.n_depth > 1 else None
+
+    @property
     def data_group(self) -> Optional[dist.ProcessGroup]:
         """The ranks that hold the other rows (None when 'data' has extent 1)."""
         return self.device_mesh.get_group("data") if self.n_data > 1 else None
@@ -107,18 +126,22 @@ class Mesh:
         s = block(num_pairs, self.n_view, self.view_rank)
         return range(s.start, s.stop)
 
+    def plane_block(self, depth_num: int) -> slice:
+        """This rank's planes of a D axis (the layout of P(..., 'depth'))."""
+        return block(depth_num, self.n_depth, self.depth_rank)
+
 
 def make_mesh(n_data: int = 1, n_view: int = 1, n_depth: int = 1, device=None) -> Mesh:
-    """The ('data', 'view') mesh of this process, on `device` (CUDA when None).
+    """The ('data', 'view') mesh of this process, or ('data', 'view', 'depth') when
+    n_depth > 1, on `device` (CUDA when None).
 
     Starts the default process group (from torchrun's environment) unless the caller
-    has; its world must hold exactly n_data * n_view ranks. A CUDA device without an
-    index becomes cuda:(LOCAL_RANK, else the rank, modulo the card count).
+    has; its world must hold exactly n_data * n_view * n_depth ranks. A CUDA device
+    without an index becomes cuda:(LOCAL_RANK, else the rank, modulo the card count).
+    Whether D splits over n_depth is checked where D is known (parallel.depth).
     """
-    if n_depth != 1:
-        raise NotImplementedError(
-            "the 'depth' mesh axis (D planes sharded over devices) is not ported yet: "
-            "ROADMAP.md Queue 1 lists it")
+    if min(n_data, n_view, n_depth) < 1:
+        raise ValueError(f"mesh extents must be positive, got ({n_data}, {n_view}, {n_depth})")
     device = resolve_device(device)
     if device.type == "cuda":
         if device.index is None:
@@ -128,10 +151,12 @@ def make_mesh(n_data: int = 1, n_view: int = 1, n_depth: int = 1, device=None) -
         torch.cuda.set_device(device)
     if not dist.is_initialized():
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-    need, have = n_data * n_view, dist.get_world_size()
+    shape = (n_data, n_view) if n_depth == 1 else (n_data, n_view, n_depth)
+    need, have = n_data * n_view * n_depth, dist.get_world_size()
     if have != need:
-        raise ValueError(f"a ({n_data}, {n_view}) mesh needs {need} processes, the world has {have}")
-    return Mesh(init_device_mesh(device.type, (n_data, n_view), mesh_dim_names=AXES), device)
+        raise ValueError(f"a {shape} mesh needs {need} processes, the world has {have}")
+    names = AXES if n_depth == 1 else AXES_DEPTH
+    return Mesh(init_device_mesh(device.type, shape, mesh_dim_names=names), device)
 
 
 def gather_blocks(x: torch.Tensor, group: Optional[dist.ProcessGroup], dim: int = 0) -> torch.Tensor:

@@ -15,6 +15,13 @@ view's features do not depend on the others), stages 1 and 3 for its pairs, AAM1
 AAM2 over the view group's all-reduces, and the rest of stages 2 and 4 on every view
 rank alike. The pair-stacked outputs are gathered over the view group, so every rank
 returns all P pairs of its rows.
+
+With a 'depth' axis (parallel.depth) every rank of a depth group runs the same rows and
+pairs on its block of the D planes: the feature towers replicated (the JAX package
+constrains features to P('data') only), every volume op on its planes with the seams
+exchanged, the soft-argmins merged over the group. depth_agg_initial, depth_views, depth
+(and the confidences) come out the same on every depth rank, and refined_prob_volumes is
+gathered to the whole D, as the pairs are over the view group.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from atvsnet_torch.models.tvsnet import (
     tvsnet_base,
     tvsnet_refine,
 )
+from atvsnet_torch.parallel.depth import DepthSplit
 from atvsnet_torch.parallel.mesh import Mesh, gather_blocks
 
 PAIR_KEYS = ("depth_views", "refined_prob_volumes")   # (P, B, ...); every other output is (B, ...)
@@ -47,8 +55,8 @@ def multi_view_forward_spmd(model: ATVSNet, images, cams, cfg: PipelineConfig,
     depth_views (P, B, h, w, 1), refined_prob_volumes (P, B, D, h, w) and depth (+ confidence
     with out_prob_map, + depth_up and confidence_up with upsample), with autograd recording
     as the caller has it. Every rank of a mesh calls it with the same batch and gets back
-    its own rows (mesh.data_rows) with all P pairs; B must split evenly over 'data' and P
-    over 'view'."""
+    its own rows (mesh.data_rows) with all P pairs; B must split evenly over 'data', P
+    over 'view' and max_d into 8-plane-divisible blocks over 'depth'."""
     if mesh is not None:
         images, cams = mesh.data_rows(images), mesh.data_rows(cams)
     return forward_rows(model, images, cams, cfg, mesh, out_prob_map, upsample)
@@ -65,6 +73,7 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     P, D = N - 1, cfg.max_d
     pairs = range(P) if mesh is None else mesh.pair_block(P)
     group = None if mesh is None else mesh.view_group
+    split = DepthSplit.of(mesh, D)
     depth_start = cams[:, 0, 1, 3, 0]
     depth_interval = cams[:, 0, 1, 3, 1]
     cfg_pair = cfg.replace(pair_batch=False)
@@ -83,7 +92,7 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     # ---- stage 1: per pair, the swapped depth only ----
     def base_pair(view_feature, view_cam):
         out = tvsnet_base(model, ref_feature, view_feature, ref_cam, view_cam, cfg_pair,
-                          depth_start, depth_interval, ref_depth=False)
+                          depth_start, depth_interval, ref_depth=False, split=split)
         return out.filtered_cost, out.depth_view
 
     outs = [remat(base_pair, features[:, i + 1], cams[:, p + 1]) for i, p in enumerate(pairs)]
@@ -92,10 +101,11 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     del outs
 
     # ---- stage 2: AAM1, over the view group ----
-    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, group=group)
+    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, group=group, split=split)
     del filtered_costs
-    prob_agg = aam_output_conv(model, cost_agg, stage=1)
-    depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=cfg.softargmin_impl)
+    prob_agg = aam_output_conv(model, cost_agg, stage=1, split=split)
+    depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=cfg.softargmin_impl,
+                           split=split)
 
     # ---- stage 3: per-pair refinement ----
     # reference_compat: the reference's per-pair visual hull always reads camera 1
@@ -104,7 +114,7 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     def refine_pair(depth_view, view_cam, shallow_view):
         return tvsnet_refine(model, depth_agg, depth_view, prob_agg, cost_agg, ref_cam,
                              view_cam, shallow_ref, shallow_view, cfg, depth_start,
-                             depth_interval, hull_view_cam=hull_cam)
+                             depth_interval, hull_view_cam=hull_cam, split=split)
 
     refined = [remat(refine_pair, depth_views[i], cams[:, p + 1], shallow[:, i + 1])
                for i, p in enumerate(pairs)]
@@ -113,10 +123,12 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     del refined
 
     # ---- stage 4: AAM2, over the view group, + soft-argmin ----
-    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, group=group)
+    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, group=group, split=split)
     del refined_costs
-    final = final_depths(aam_output_conv(model, cost_agg2, stage=2), cfg, depth_start,
-                         depth_interval, out_prob_map, upsample)
+    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, split=split), cfg,
+                         depth_start, depth_interval, out_prob_map, upsample, split)
+    depth_group = None if split is None else split.group
+    refined_probs = gather_blocks(refined_probs, depth_group, dim=2)   # (P, B, D, h, w)
     return {"depth_agg_initial": depth_agg, "depth_views": gather_blocks(depth_views, group),
             "refined_prob_volumes": gather_blocks(refined_probs, group), **final}
 

@@ -80,12 +80,33 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 (d) the eval CLI under torchrun, --mesh data=<count>, on a rendered
                 4-image 256x320 scene at 5 views, D=128: the files of an unsharded
                 run_eval_pc, the depth maps within the BATCH_MEAN_DIFF bounds
+ 16. quant      each storage quantization (act_quant int8 and int8s, warp_quant int8,
+                int8s + int8): phase_small's forward on the card against the CPU (bounds
+                QUANT_MEAN_DIFF, QUANT_MAX_DIFF); then the flagship forward (deterministic
+                cuDNN) in turns with the unquantized forward: median seconds of 5, peak
+                memory, |depth - unquantized depth| mean and max in sweep units; and at
+                the same size on a rendered scene, the depth moved and its error against
+                the ground truth
+ 17. depth      the 'depth' mesh axis (parallel.depth): (a) the flagship forward on a
+                depth=2 mesh, 2 ranks sharing cuda:0 over gloo, and on (1, 2, 2), 4 ranks
+                each held to SHARED4_MEMORY_FRACTION of the card, against one process within
+                the BATCH_MEAN_DIFF bounds, with the depth-split kernels' launches per rank
+                and shape; (b) a world of device_count() ranks over NCCL, D split over as
+                many as it divides (1 on one card); (c) the train-size fp32 loss and
+                backward on depth=2 against one process (loss rtol 1e-4, gradients 5e-3),
+                4 and 4 launches of the two depth-split kernels per rank; (d) the flagship
+                fp32 train step, remat on, on depth=2: seconds and peak memory per rank
+The kernel phase also holds the depth-split entry points (the partial forward, the
+stats-fed backward) against their plain versions at the flagship's depth=2 slices
+(SPLIT_SHAPES), fp32 and bf16, an all-+inf slice and a misaligned one, and timing times
+them beside their bounds.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only native fusion eval train parallel` runs just those phases after
-device and build: a short run while working on one of them, which exits 1 and prints no
-kernels line and no ok line.
+nothing of JAX or of atvsnet_tpu. `--only native fusion eval train parallel quant depth` runs just
+those phases after device and build (depth with the depth-split kernels' checks and times):
+a short run while working on one of them, which exits 1 and prints no kernels line and no
+ok line.
 """
 
 from __future__ import annotations
@@ -127,7 +148,8 @@ from atvsnet_torch.geometry.cameras import scale_camera_np
 from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
                                           refine_pairs_batched, sweep_to_depth)
 from atvsnet_torch.geometry.depth_regression import prob2depth, prob2depth_upsample
-from atvsnet_torch.models.train import init_train_state, loss_and_grads, make_optimizer, train_step
+from atvsnet_torch.models.train import (init_train_state, loss_and_grads, make_optimizer,
+                                        sharded_train_step, train_step)
 from atvsnet_torch.models.tvsnet import (aam_aggregate_stacked, aam_output_conv, extract_features,
                                          init_model, prepare_inputs, refinement, tvsnet_base)
 from atvsnet_torch.nn import layers as L
@@ -251,6 +273,43 @@ def parallel_shapes(pairs: int) -> dict:
 PARALLEL_LOSS_RTOL, PARALLEL_GRAD_REL = 1e-4, 5e-3
 PARALLEL_RESULT_TIMEOUT_S = 400
 PARALLEL_EVAL = dict(view_num=5, max_d=128, max_h=256, max_w=320)
+# The quant phase: the flagship forward (deterministic cuDNN) under each storage
+# quantization, in turns with the unquantized one: seconds, peak memory, and how far the
+# quantization moves the depth (no bound: on the noise images of synthetic_scene the
+# softmax over D is flat and the depth moves by whole planes, see PERF.md). The card's
+# quantized forward is bounded against the same forward on the CPU, at phase_small's size
+# with the trained weights on a rendered scene, as tests/test_torch_quant.py bounds the
+# port's quantized forward against the JAX package's (mean 2e-3, max 1e-2 sweep units): a
+# value within float noise of a lattice tie lands one step away, and the U-Nets and
+# refinement amplify that step.
+QUANT_MODES = {"act int8": dict(act_quant="int8"), "act int8s": dict(act_quant="int8s"),
+               "warp int8": dict(warp_quant="int8"),
+               "act int8s + warp int8": dict(act_quant="int8s", warp_quant="int8")}
+QUANT_ROUNDS = 5
+QUANT_MEAN_DIFF, QUANT_MAX_DIFF = 2e-3, 1e-2
+# The depth phase. Launches of the depth-split kernels per depth rank of the flagship
+# forward on a depth mesh (the parallel.pipeline forward: 1 per own pair in stage 1, AAM1's,
+# the native final depth's at the native slice; the 4 row tiles), and per training loss
+# and backward at the train size (3 views: 2 pairs, AAM1, the final depth).
+def depth_shapes(pairs: int, n_depth: int) -> dict:
+    d = 128 // n_depth
+    return {(1, d, 120, 224): pairs + 2, (1, d, 120, 896): 4}
+
+
+DEPTH_TRAIN_SHAPE = (2, 16, 32, 40)      # the 2-row train batch's volumes on depth=2
+DEPTH_TRAIN_LAUNCHES = (4, 4)            # (partial forward, stats-fed backward)
+# the flagship remat-on step on one process (PERF.md §5; an H100 80GB HBM3 at 700 W)
+ONE_PROCESS_REMAT_STEP = {"seconds": 7.05, "peak_bytes": 31_742_019_584}
+# each rank of the 4-rank world on one card keeps to this share of its memory, so that the
+# four fit whatever workspace cuDNN would take (it tries smaller algorithms instead)
+SHARED4_MEMORY_FRACTION = 0.23
+# the depth-split kernels: per cost element of the partial forward the forward's work;
+# per element of the stats-fed backward two exponent arguments, the exponent, the sweep
+# difference and two products
+SPLIT_BWD_FLOPS_PER_ELEMENT = 6
+# the shapes of the flagship's depth=2 split (native slice and row tile), held against the
+# plain versions; the slice at offset 64 is the second rank's
+SPLIT_SHAPES = ((1, 64, 120, 224), (1, 64, 120, 896))
 # the flagship forward with each activation, in this order: every relu beside a maximum,
 # first and last alike, so that a drift of the host's launch rate falls on both
 ACTIVATION_ORDER = ("relu", "maximum", "maximum", "relu") * 3
@@ -1752,12 +1811,444 @@ def phase_parallel() -> dict:
     return {"forward": forward, "backward": backward}
 
 
+# ---- the quant phase ----
+
+def phase_quant():
+    """Each storage quantization (QUANT_MODES): the card against the CPU at the small size
+    (bounded), then the flagship forward in turns with the unquantized forward,
+    deterministic cuDNN: median seconds of QUANT_ROUNDS forwards, peak memory, and
+    |depth - unquantized depth| in sweep units and in planes."""
+    torch.backends.cudnn.deterministic = True
+    small = PipelineConfig(view_num=3, max_d=32, max_h=64, max_w=96)
+    scene = render_multiplane_scene(view_num=3, H=64, W=96, D=32, seed=11, num_spheres=2)
+    models = {dev: load_model(SPHERES, small, device=dev) for dev in ("cuda", "cpu")}
+    vs_cpu, ok_small = {}, True
+    for name, kw in QUANT_MODES.items():
+        got = {dev: multi_view_forward(m, scene["images"], scene["cams"], small.replace(**kw))
+               ["depth"].float().cpu() for dev, m in models.items()}
+        d = (got["cuda"] - got["cpu"]).abs()
+        vs_cpu[name] = {"mean_abs": float(d.mean()), "max_abs": float(d.max())}
+        ok_small = (ok_small and bool(torch.isfinite(got["cuda"]).all())
+                    and vs_cpu[name]["mean_abs"] <= QUANT_MEAN_DIFF
+                    and vs_cpu[name]["max_abs"] <= QUANT_MAX_DIFF)
+    emit(phase="quant", part="the card against the CPU", view_num=3, size=[64, 96], max_d=32,
+         scene="render_multiplane_scene(seed=11, num_spheres=2)", modes=vs_cpu,
+         mean_bound=QUANT_MEAN_DIFF, max_bound=QUANT_MAX_DIFF, ok=ok_small)
+    if not ok_small:
+        raise AssertionError("quant: the card's quantized forward is not the CPU's")
+    del models
+    cfg = PipelineConfig()
+    images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
+                                   D=cfg.max_d, seed=0)
+    model = load_model(SPHERES, cfg, device="cuda")
+    configs = {"none": cfg, **{n: cfg.replace(**kw) for n, kw in QUANT_MODES.items()}}
+    outs = {}
+    for name, c in configs.items():   # warm: cuDNN's algorithm choice, and the depths
+        out = multi_view_forward(model, images, cams, c)
+        outs[name] = {k: out[k].cpu() for k in ("depth", "depth_agg_initial", "depth_views")}
+    seconds = {name: [] for name in configs}
+    peaks = dict.fromkeys(configs, 0)
+    for _ in range(QUANT_ROUNDS):
+        for name, c in configs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            multi_view_forward(model, images, cams, c)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+    torch.backends.cudnn.deterministic = False
+    interval = float(cams[0, 0, 1, 3, 1])
+    ok, rows = True, {}
+    for name in configs:
+        diff = {k: {"mean_abs": float((outs[name][k] - outs["none"][k]).abs().mean()),
+                    "max_abs": float((outs[name][k] - outs["none"][k]).abs().max()),
+                    "mean_planes": float((outs[name][k] - outs["none"][k]).abs().mean()) / interval}
+                for k in outs[name]}
+        finite = all(bool(torch.isfinite(v).all()) for v in outs[name].values())
+        rows[name] = {"config": QUANT_MODES.get(name, {}), "seconds_each": seconds[name],
+                      "seconds_median": float(np.median(seconds[name])),
+                      "peak_memory_bytes": peaks[name], "vs_unquantized": diff, "finite": finite}
+        ok = ok and finite
+    # the same size on a rendered scene, whose depth is well defined: how far each mode
+    # moves it, and its error against the ground truth
+    rendered = train_batch(cfg, seed=21)
+    gt = torch.from_numpy(rendered["depth_gt"])
+    valid = gt > 0
+    torch.backends.cudnn.deterministic = True
+    depths = {name: multi_view_forward(model, rendered["images"], rendered["cams"], c)["depth"].cpu()
+              for name, c in configs.items()}
+    torch.backends.cudnn.deterministic = False
+    r_interval = float(rendered["cams"][0, 0, 1, 3, 1])
+    for name, d in depths.items():
+        moved = (d - depths["none"]).abs()
+        rows[name]["rendered_scene"] = {
+            "vs_unquantized": {"mean_abs": float(moved.mean()), "max_abs": float(moved.max())},
+            "mae_vs_ground_truth_planes": float((d - gt).abs()[valid].mean()) / r_interval}
+        ok = ok and bool(torch.isfinite(d).all())
+    emit(phase="quant", part="the flagship forward", view_num=cfg.view_num,
+         size=[cfg.max_h, cfg.max_w], max_d=cfg.max_d, dtype=cfg.compute_dtype,
+         depth_interval=interval, rendered_depth_interval=r_interval,
+         rendered_scene="render_multiplane_scene(seed=21, num_spheres=2) at the same size",
+         cudnn_deterministic=True, rounds=QUANT_ROUNDS, order=list(configs), modes=rows,
+         jax_probe_mean_for_comparison=0.0022, ok=ok)
+    if not ok:
+        raise AssertionError("quant: a quantized flagship forward is not finite")
+
+
+# ---- the depth phase ----
+
+def split_launch_record() -> dict:
+    return {d: {"launches": fn.launches, "by_path": dict(fn.path_launches),
+                "by_shape": shape_counts(fn.shape_launches)}
+            for d, fn in (("partial", S.softargmin_partial_cuda),
+                          ("backward_stats", S.softargmin_backward_stats_cuda),
+                          ("forward", S.softargmin_cuda), ("backward", S.softargmin_backward_cuda))}
+
+
+def split_bound_ms(shape, elem_bytes: int, kind: str, backward: bool):
+    """Least time of one depth-split call: the partial forward reads the slice and writes
+    the (3, B, h, w) fp32 triple; the stats-fed backward reads the slice, the (2, B, h, w)
+    stats, the depth and the incoming gradient, and writes the slice's gradient; both
+    read start and interval. Over HBM bandwidth, vs the operations over the fp32 peak."""
+    B, D, h, w = shape
+    if backward:
+        nbytes = 2 * B * D * h * w * elem_bytes + 4 * B * h * w * 4 + 2 * B * 4
+        flops = SPLIT_BWD_FLOPS_PER_ELEMENT
+    else:
+        nbytes = B * D * h * w * elem_bytes + 3 * B * h * w * 4 + 2 * B * 4
+        flops = FLOPS_PER_ELEMENT
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    t_ops = B * D * h * w * flops / FP32_FLOP_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_inputs(shape, dtype, seed, transform=None):
+    """A whole-D volume of twice the slice's planes, cut in two: the second half (offset
+    D) as a rank's slice, and the stats and depth that merging both halves gives, with a
+    seeded incoming gradient. transform "inf": every plane of the slice +inf at every 5th
+    pixel (its triple is (-inf, 0, 0)); "misaligned": the slice 4 bytes off 16-byte
+    alignment (the scalar path)."""
+    B, D, h, w = shape
+    full, ds, di = kernel_inputs((B, 2 * D, h, w), dtype, seed)
+    if transform == "inf":
+        full.view(B, 2 * D, h * w)[:, D:, ::5] = torch.inf
+    halves = [full[:, :D].contiguous(), full[:, D:].contiguous()]
+    triples = [S.softargmin_partial_torch(c, ds, di, k * D) for k, c in enumerate(halves)]
+    m = torch.stack([t[0] for t in triples]).amax(dim=0)
+    sums = sum(t[1:] * torch.exp(t[0] - S.finite_or_zero(m)) for t in triples)
+    depth = (sums[1] / sums[0])[..., None].contiguous()
+    stats = torch.stack([m, sums[0]]).contiguous()
+    cost = misaligned_view(halves[1]) if transform == "misaligned" else halves[1]
+    g = torch.randn(depth.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    return full, cost, ds, di, D, stats, depth, g
+
+
+def split_kernel_cases():
+    f32, bf16 = torch.float32, torch.bfloat16
+    native, tile = SPLIT_SHAPES
+    return [("native slice", native, f32, "aligned", None), ("native slice bf16", native, bf16, "aligned", None),
+            ("tile slice", tile, f32, "aligned", None), ("tile slice bf16", tile, bf16, "aligned", None),
+            ("all +inf slice", native, f32, "aligned", "inf"),
+            ("misaligned slice", native, f32, "scalar", "misaligned")]
+
+
+def phase_kernel_split() -> tuple[float, float]:
+    """The partial forward against softargmin_partial_torch (the max to the bit, the sums
+    at rtol 1e-5), and the merged triples against softargmin_torch of the whole volume;
+    the stats-fed backward against its plain version (BWD_RTOL) and against autograd of
+    softargmin_torch over the whole volume (the slice's planes), at SPLIT_SHAPES.
+    Returns the largest difference of each kernel to its plain version."""
+    worst = {"partial": 0.0, "backward_stats": 0.0}
+    for i, (name, shape, dtype, path, transform) in enumerate(split_kernel_cases()):
+        full, cost, ds, di, off, stats, depth, g = split_inputs(shape, dtype, 400 + i, transform)
+        before = (dict(S.softargmin_partial_cuda.path_launches),
+                  dict(S.softargmin_backward_stats_cuda.path_launches))
+        got = S.softargmin_partial_cuda(cost, ds, di, off)
+        ref = S.softargmin_partial_torch(cost, ds, di, off)
+        grad = S.softargmin_backward_stats_cuda(cost, ds, di, off, stats, depth, g).float()
+        grad_ref = S.softargmin_backward_stats_torch(cost, ds, di, off, stats, depth, g).float()
+        leaf = full.detach().clone().requires_grad_(True)
+        S.softargmin_torch(leaf, ds, di).backward(g)
+        torch.cuda.synchronize()
+        took = [[p for p in S.PATHS if fn.path_launches[p] == b[p] + 1] for fn, b in
+                zip((S.softargmin_partial_cuda, S.softargmin_backward_stats_cuda), before)]
+        max_ok = torch.equal(got[0], ref[0])
+        sums_ok, err = _within(got[1:], ref[1:], RTOL, 1e-6 * float(ref[1:].abs().max()))
+        whole = S.softargmin_torch(full, ds, di)
+        merged_ok, merged_err = _within(depth, whole, RTOL, ATOL)
+        scale = float(grad_ref.abs().max())
+        plain_ok, err_bwd = _within(grad, grad_ref, BWD_RTOL[dtype], 1e-6 * scale)
+        auto_atol = 1e-5 * float(g.abs().max()) * float(S.sweep(2 * off, ds, di).abs().max())
+        auto_ok, err_auto = _within(grad, leaf.grad[:, off:].float(), BWD_RTOL[dtype], auto_atol)
+        inf_ok = True
+        if transform == "inf":
+            flat = got.view(3, shape[0], -1)[:, :, ::5]
+            inf_ok = bool(torch.isneginf(flat[0]).all()) and bool((flat[1:] == 0).all())
+        ok = (took == [[path], [path]] and max_ok and sums_ok and merged_ok and plain_ok
+              and auto_ok and inf_ok)
+        emit(phase="kernel", direction="depth split", case=name, shape=list(shape),
+             dtype=str(dtype).split(".")[-1], offset=off, path=took, max_exact=max_ok,
+             max_abs_err_partial=err, merged_vs_whole=merged_err, max_abs_err_backward=err_bwd,
+             max_abs_err_backward_vs_autograd=err_auto, inf_slice_triple_ok=inf_ok, ok=ok)
+        if not ok:
+            raise AssertionError(f"depth-split kernel case '{name}' at {shape}: wrong path or "
+                                 "values against the plain versions")
+        worst["partial"] = max(worst["partial"], err)
+        worst["backward_stats"] = max(worst["backward_stats"], err_bwd)
+    return worst["partial"], worst["backward_stats"]
+
+
+def phase_timing_split(kind):
+    """Device times of the depth-split kernels beside their plain versions, bounds and an
+    empty launch, at SPLIT_SHAPES in fp32 and bf16 (the backward at the native slice, the
+    shape training runs it at). Returns per kernel (ms, plain_ms, bound_ms, bound_by) of
+    one depth=2 rank: the flagship forward's partial launches (depth_shapes(4, 2)) and a
+    flagship train step's stats-fed backward launches (6 at the native slice)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    native, tile = SPLIT_SHAPES
+    per_forward = depth_shapes(4, 2)
+    totals = {"partial": dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0),
+              "backward_stats": dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)}
+    bound_by = {"partial": "bytes", "backward_stats": "bytes"}
+    for backward, shape, dtype in [(False, native, f32), (False, tile, f32), (False, native, bf16),
+                                   (False, tile, bf16), (True, native, f32), (True, native, bf16),
+                                   (True, tile, f32)]:
+        elem = torch.tensor([], dtype=dtype).element_size()
+        nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
+        bufs = [split_inputs(shape, dtype, 500 + i)[1:] for i in range(nbuf)]
+        if backward:
+            k_ms = device_ms(S.softargmin_backward_stats_cuda, bufs, 50)
+            p_ms = device_ms(S.softargmin_backward_stats_torch, bufs, 20)
+        else:
+            bufs = [b[:4] for b in bufs]
+            k_ms = device_ms(S.softargmin_partial_cuda, bufs, 50)
+            p_ms = device_ms(S.softargmin_partial_torch, bufs, 20)
+        e_ms = device_ms(lambda c, *_: S.empty_launch(c), bufs, 50)
+        b_ms, b_by = split_bound_ms(shape, elem, kind, backward)
+        name = "backward_stats" if backward else "partial"
+        emit(phase="timing", what="softargmin_" + name, shape=list(shape),
+             dtype=str(dtype).split(".")[-1], path="aligned", kernel_ms=k_ms, plain_ms=p_ms,
+             bound_ms=b_ms, bound_by=b_by, empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms,
+             buffers=nbuf, library_ms=None,
+             library="none: no single PyTorch call computes a partial soft-argmin or its gradient")
+        del bufs
+        n = (6 if shape == native else 0) if backward else per_forward.get(shape, 0)
+        if dtype == f32 and n:
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+                totals[name][key] += n * v
+            bound_by[name] = b_by if b_by == "operations" else bound_by[name]
+    return totals, bound_by
+
+
+def depth_rank_forward(mesh, model, cfg, images, cams) -> dict:
+    """sharded_run with every kernel's launches of the counted forward."""
+    res = sharded_run(mesh, model, cfg, images, cams)
+    res.update(mesh=[mesh.n_data, mesh.n_view, mesh.n_depth], depth_rank=mesh.depth_rank,
+               split=split_launch_record())
+    return res
+
+
+def depth_shared_card():
+    """(a), (c) and (d) of the depth phase on one rank of the 2-rank gloo world on cuda:0."""
+    torch.backends.cudnn.deterministic = True
+    cfg = PipelineConfig()
+    model = load_model(SPHERES, cfg, device="cuda:0")
+    images, cams = parallel_scenes(cfg, 1)
+    res = {"forward": depth_rank_forward(make_mesh(1, 1, 2, device="cuda:0"), model, cfg,
+                                         images, cams)}
+    del model
+    torch.cuda.empty_cache()
+    # (c) the train-size loss and backward on depth=2
+    tcfg_size = PipelineConfig(**TRAIN_SIZE)
+    mesh = make_mesh(1, 1, 2, device="cuda:0")
+    model = load_model(SPHERES, tcfg_size, device="cuda:0").requires_grad_(True)
+    batch = parallel_train_batch(tcfg_size)
+    loss_and_grads(model, batch, tcfg_size, TrainConfig(), mesh)      # warm
+    torch.cuda.synchronize()
+    S.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(model, batch, tcfg_size, TrainConfig(), mesh)
+    torch.cuda.synchronize()
+    res["train"] = {"seconds": time.perf_counter() - t0, "loss": float(loss),
+                    "launches": split_launch_record(),
+                    "grads": {n: g.cpu().numpy() for n, g in grads.items()}}
+    del model, grads
+    torch.backends.cudnn.deterministic = False
+    # (d) the flagship fp32 train step, remat on, on depth=2; two steps, the second timed
+    torch.cuda.empty_cache()
+    flag = cfg.replace(remat=True)
+    model = load_model(SPHERES, flag, device="cuda:0")
+    opt = make_optimizer(TrainConfig())
+    state = init_train_state(model, opt)
+    step = sharded_train_step(mesh, flag, TrainConfig(), opt)
+    flag_batch = train_batch(flag, seed=21)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for _ in range(2):
+        S.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, flag_batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    res["flagship_step"] = {"seconds_each": seconds, "losses": losses,
+                            "peak_bytes": torch.cuda.max_memory_allocated(),
+                            "launches": split_launch_record()}
+    return res
+
+
+def depth_shared_card4():
+    """(a) on one rank of the 4-rank gloo world on cuda:0: the flagship forward on
+    (1, 2, 2), each rank held to SHARED4_MEMORY_FRACTION of the card."""
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_per_process_memory_fraction(SHARED4_MEMORY_FRACTION, 0)
+    cfg = PipelineConfig()
+    model = load_model(SPHERES, cfg, device="cuda:0")
+    images, cams = parallel_scenes(cfg, 1)
+    return depth_rank_forward(make_mesh(1, 2, 2, device="cuda:0"), model, cfg, images, cams)
+
+
+def depth_nccl(size: int):
+    """(b) on one rank of the NCCL world: D split over as many cards as it divides."""
+    torch.backends.cudnn.deterministic = True
+    cfg = PipelineConfig()
+    n_depth = max(d for d in range(1, size + 1) if size % d == 0 and cfg.max_d % (8 * d) == 0)
+    mesh = make_mesh(size // n_depth, 1, n_depth)
+    model = load_model(SPHERES, cfg, device=mesh.device)
+    images, cams = parallel_scenes(cfg, mesh.n_data)
+    return dict(depth_rank_forward(mesh, model, cfg, images, cams), backend=dist.get_backend(),
+                device=str(mesh.device))
+
+
+def phase_depth() -> dict:
+    """The 'depth' mesh axis: (a) the flagship forward on depth=2 (2 ranks sharing cuda:0
+    over gloo) and on (1, 2, 2) (4 ranks); (b) an NCCL world of device_count() ranks with
+    'depth' as large as it divides; (c) the train-size fp32 loss and backward on depth=2
+    against one process; (d) the flagship fp32 train step with remat on depth=2. Returns
+    the depth-split kernels' launches over every rank's counted runs."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        shared = run_ranks(2, {"backend": "gloo", "store": os.path.join(tmp, "store")},
+                           depth_shared_card)
+    shared4, why_not4 = None, None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            shared4 = run_ranks(4, {"backend": "gloo", "store": os.path.join(tmp, "store")},
+                                depth_shared_card4)
+    except AssertionError as e:
+        if "out of memory" not in str(e).lower():
+            raise
+        why_not4 = ("four ranks did not fit one card at "
+                    f"{SHARED4_MEMORY_FRACTION} of its memory each: " + str(e)[-600:])
+    count = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    nccl = run_ranks(count, {"backend": "nccl", "port": port}, depth_nccl, count)
+
+    # the references, in this process once the worlds are done
+    torch.backends.cudnn.deterministic = True
+    cfg = PipelineConfig()
+    model = load_model(SPHERES, cfg, device="cuda")
+    n_rows = max(1, nccl[0]["mesh"][0])
+    images, cams = parallel_scenes(cfg, n_rows)
+    single = [multi_view_forward(model, images[i:i + 1], cams[i:i + 1], cfg) for i in range(n_rows)]
+    single = {k: torch.cat([o[k].cpu() for o in single], dim=1 if k == "depth_views" else 0)
+              for k in DEPTH_KEYS}
+    del model
+    tcfg_size = PipelineConfig(**TRAIN_SIZE)
+    model = load_model(SPHERES, tcfg_size, device="cuda").requires_grad_(True)
+    loss_1, _, grads_1 = loss_and_grads(model, parallel_train_batch(tcfg_size), tcfg_size,
+                                        TrainConfig())
+    grads_1 = {n: g.cpu() for n, g in grads_1.items()}
+    del model
+    torch.backends.cudnn.deterministic = False
+
+    def forward_record(ranks):
+        n_data, n_view, n_depth = ranks[0]["mesh"]
+        want = {k: v[:, :n_data] if k == "depth_views" else v[:n_data] for k, v in single.items()}
+        agree = depth_differences(ranks[0]["depths"], want, DEPTH_KEYS)
+        same = all(np.array_equal(r["depths"][k], ranks[0]["depths"][k])
+                   for r in ranks for k in DEPTH_KEYS)
+        pairs = (cfg.view_num - 1) // n_view
+        if n_depth > 1:
+            expected = depth_shapes(pairs, n_depth)
+            launches_ok = all(r["split"]["partial"]["by_shape"] == shape_counts(expected)
+                              and r["split"]["partial"]["by_path"]["scalar"] == 0
+                              and r["split"]["forward"]["launches"] == 0 for r in ranks)
+        else:
+            expected = parallel_shapes(pairs)
+            launches_ok = all(r["by_shape"] == expected and r["split"]["partial"]["launches"] == 0
+                              for r in ranks)
+        return {"mesh": ranks[0]["mesh"], "vs_one_process": agree,
+                "ranks_agree_to_the_bit": same,
+                "per_rank": [{"seconds": r["seconds"], "peak_bytes": r["peak_bytes"],
+                              "launches": r["split"]} for r in ranks],
+                "expected_by_shape": shape_counts(expected),
+                "ok": within_batch_bounds(agree) and same and launches_ok}
+
+    a = {"depth=2": forward_record([r["forward"] for r in shared])}
+    if shared4 is not None:
+        a["view=2 depth=2"] = forward_record(shared4)
+    ok_a = all(v["ok"] for v in a.values())
+    emit(phase="depth", part="a: the flagship forward, ranks sharing cuda:0 over gloo", runs=a,
+         four_ranks_skipped_because=why_not4, memory_fraction_of_four=SHARED4_MEMORY_FRACTION,
+         batch_mean_diff=BATCH_MEAN_DIFF, batch_diff_at=BATCH_DIFF_AT,
+         batch_max_share=BATCH_MAX_SHARE, ok=ok_a)
+
+    b = forward_record(nccl)
+    ok_b = b["ok"] and all(r["backend"] == "nccl" for r in nccl)
+    emit(phase="depth", part="b: one rank per card over NCCL, depth as large as it divides",
+         world_size=count, devices=[r["device"] for r in nccl], run=b, ok=ok_b)
+
+    per = []
+    want = {"x".join(map(str, DEPTH_TRAIN_SHAPE)): DEPTH_TRAIN_LAUNCHES[0]}
+    for r in shared:
+        res = r["train"]
+        loss_rel = abs(res["loss"] - float(loss_1)) / abs(float(loss_1))
+        rel = grad_rel({n: torch.from_numpy(g) for n, g in res["grads"].items()}, grads_1)
+        launches = res["launches"]
+        per.append({"loss": res["loss"], "loss_rel": loss_rel, "grad_rel": rel,
+                    "seconds": res["seconds"], "launches": launches,
+                    "ok": (loss_rel <= PARALLEL_LOSS_RTOL and rel <= PARALLEL_GRAD_REL
+                           and (launches["partial"]["launches"],
+                                launches["backward_stats"]["launches"]) == DEPTH_TRAIN_LAUNCHES
+                           and launches["partial"]["by_shape"] == want
+                           and launches["forward"]["launches"] == 0
+                           and launches["backward"]["launches"] == 0)})
+    ok_c = all(p["ok"] for p in per)
+    emit(phase="depth", part="c: train-size loss and backward on depth=2", size=TRAIN_SIZE,
+         dtype="float32", loss_one_process=float(loss_1), loss_rtol=PARALLEL_LOSS_RTOL,
+         grad_rel_bound=PARALLEL_GRAD_REL, expected_launches=list(DEPTH_TRAIN_LAUNCHES),
+         per_rank=per, ok=ok_c)
+
+    steps = [r["flagship_step"] for r in shared]
+    ok_d = all(math.isfinite(v) for s_ in steps for v in s_["losses"]) and all(
+        s_["launches"]["partial"]["launches"] > 0 and s_["launches"]["backward_stats"]["launches"] > 0
+        for s_ in steps)
+    emit(phase="depth", part="d: flagship fp32 train step, remat on, depth=2 sharing cuda:0",
+         per_rank=steps, one_process_remat_on=ONE_PROCESS_REMAT_STEP,
+         remat_off_per_rank=("not run: two ranks of the remat-off step need more than one "
+                             "80 GB card (71.3 GB on one process); it waits for a multi-card "
+                             "call" if count < 2 else "not run in this script"), ok=ok_d)
+    if not (ok_a and ok_b and ok_c and ok_d):
+        raise AssertionError("depth: a depth-split run disagrees or launched wrong; see above")
+    runs = ([r["forward"]["split"] for r in shared] + [r["split"] for r in nccl]
+            + ([r["split"] for r in shared4] if shared4 else [])
+            + [r["train"]["launches"] for r in shared] + [s_["launches"] for s_ in steps])
+    return {d: sum(run[d]["launches"] for run in runs) for d in ("partial", "backward_stats")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--only", nargs="+", choices=["native", "fusion", "eval", "train", "parallel"],
+    ap.add_argument("--only", nargs="+",
+                    choices=["native", "fusion", "eval", "train", "parallel", "quant", "depth"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
@@ -1776,11 +2267,14 @@ def main() -> int:
     if args.only:
         for phase in args.only:
             {"native": phase_native, "fusion": lambda: phase_fusion(kind), "eval": phase_eval,
-             "train": phase_train, "parallel": phase_parallel}[phase]()
+             "train": phase_train, "parallel": phase_parallel, "quant": phase_quant,
+             "depth": lambda: (phase_kernel_split(), phase_timing_split(kind), phase_depth())
+             }[phase]()
         print(smi, flush=True)
         return 1  # a partial run is no pass
     max_err = phase_kernel()
     max_err_bwd = phase_kernel_backward()
+    max_err_partial, max_err_stats = phase_kernel_split()
     phase_small()
 
     cfg = PipelineConfig()                              # 5 views, 480x896, D=128, fp32
@@ -1790,6 +2284,7 @@ def main() -> int:
     launches = phase_forward(model, images, cams, cfg)
     totals, bound_by = phase_timing(model, images, cams, cfg, kind)
     bwd_totals, bwd_bound_by = phase_timing_backward(kind)
+    split_totals, split_bound_by = phase_timing_split(kind)
     phase_profile(model, images, cams, cfg)
     phase_pair_batch(model, images, cams, cfg)
     del model
@@ -1804,6 +2299,10 @@ def main() -> int:
     train_launches = phase_train()
     torch.cuda.empty_cache()
     parallel_launches = phase_parallel()
+    torch.cuda.empty_cache()
+    phase_quant()
+    torch.cuda.empty_cache()
+    depth_launches = phase_depth()
 
     print(smi, flush=True)
     # launches: the flagship forward's, the eval path's, the train CLI run's and the parallel
@@ -1825,6 +2324,20 @@ def main() -> int:
         "launches": train_bwd + par_bwd, "launches_by_run": {"train": train_bwd, "parallel": par_bwd},
         "max_abs_err": max_err_bwd, "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
         "bound_ms": bwd_totals["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
+    }, {
+        "name": "softargmin_partial", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
+        "replaces": "atvsnet_tpu/ops/softargmin.py:26 (its reduction over a D split across "
+                    "the 'depth' mesh axis, atvsnet_tpu/parallel/pipeline.py:51-71)",
+        "launches": depth_launches["partial"], "max_abs_err": max_err_partial,
+        **split_totals["partial"], "bound_by": split_bound_by["partial"], "library_ms": None,
+    }, {
+        "name": "softargmin_backward_stats", "route": "cuda",
+        "source": "atvsnet_torch/csrc/softargmin.cu",
+        "replaces": "atvsnet_tpu/ops/softargmin.py:141 (_fused_bwd over a D split across the "
+                    "'depth' mesh axis)",
+        "launches": depth_launches["backward_stats"], "max_abs_err": max_err_stats,
+        **split_totals["backward_stats"], "bound_by": split_bound_by["backward_stats"],
+        "library_ms": None,
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0

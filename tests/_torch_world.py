@@ -189,6 +189,143 @@ def eval_cases(data_root, savepath, params_path, scenes, eval_kw):
     return None
 
 
+def depth_op_cases(shape, depth_num=32, seed=0):
+    """Each volume op on this rank's block of D planes of a mesh of `shape` (every data
+    and view rank runs the same case over its depth group), and the same op on the whole
+    volume in this process: the conv at stride 1 and 2, the transposed conv, conv3d_mixed
+    at both strides, batch_stat_norm, conv_bn with int8 quantization. For each: the
+    gathered outputs and both values of a seeded linear functional's gradient (the
+    input's and the weight's; the split's summed over the depth group by the caller)."""
+    from atvsnet_torch.nn import layers as L
+    from atvsnet_torch.parallel.depth import DepthSplit
+    from atvsnet_torch.parallel.mesh import gather_blocks, make_mesh
+
+    mesh = make_mesh(*shape, device="cpu")
+    split = DepthSplit.of(mesh, depth_num)
+    g = torch.Generator().manual_seed(seed)
+    B, h, w, C, Co = 2, 6, 5, 3, 4
+    x = torch.randn((B, depth_num, h, w, C), generator=g)
+    c2 = torch.randn((B, h, w, 2), generator=g)
+    wk = torch.randn((Co, C, 3, 3, 3), generator=g) * 0.3
+    wm = torch.randn((Co, C + 2, 3, 3, 3), generator=g) * 0.3
+    wt = torch.randn((C, Co, 3, 3, 3), generator=g) * 0.3
+    quant = L.ActQuant("int8")
+    ops = {
+        "conv s1": (lambda v, s, k: L.conv(v, k, split=s), wk),
+        "conv s2": (lambda v, s, k: L.conv(v, k, stride=2, split=s), wk),
+        "deconv": (lambda v, s, k: L.deconv(v, k, split=s), wt),
+        "mixed s1": (lambda v, s, k: L.conv3d_mixed(k, v, c2, split=s), wm),
+        "mixed s2": (lambda v, s, k: L.conv3d_mixed(k, v, c2, stride=2, split=s), wm),
+        "batch_stat_norm": (lambda v, s, k: L.batch_stat_norm(v * v, split=s), wk),
+        "conv_bn int8": (lambda v, s, k: L.conv_bn(v, k, quant=quant, split=s), wk),
+    }
+    res = {"offset": split.offset, "local": split.local}
+    for name, (op, kernel) in ops.items():
+        case = {}
+        for which, sp in (("split", split), ("single", None)):
+            xv = (x[:, split.planes] if sp is not None else x).clone().requires_grad_(True)
+            kv = kernel.clone().requires_grad_(True)
+            y = op(xv, sp, kv)
+            r = torch.randn(y.shape[:1] + (y.shape[1] * (split.size if sp is not None else 1),)
+                            + y.shape[2:], generator=torch.Generator().manual_seed(seed + 1))
+            if sp is not None:
+                r = r[:, y.shape[1] * split.rank:y.shape[1] * (split.rank + 1)]
+            group = split.group if sp is not None else None
+            case[which] = {"out": gather_blocks(y.detach(), group, dim=1)}
+            if name != "conv_bn int8":      # the quantized link is inference only
+                (y * r).sum().backward()
+                case[which].update(x_grad=gather_blocks(xv.grad, group, dim=1),
+                                   w_grad=torch.zeros_like(kv) if kv.grad is None else kv.grad)
+        res[name] = case
+    return numpy_tree(res)
+
+
+def depth_softargmin_cases(shape, depth_num=32, seed=0):
+    """The soft-argmin over a split D on a mesh of `shape` against the one-process
+    versions on the whole volume: the merged depth and its gradient (SplitSoftArgminFunction
+    on the plain partial forward and stats-fed backward) against softargmin_torch and
+    autograd of it; the depth and 4-bin confidence of prob2depth(out_prob_map=True) and
+    the upsampled soft-argmin, split against whole. The volume has a pixel whose planes
+    are all +inf, one whose first block's planes are all +inf, and one whose estimate sits
+    on the seam between two blocks."""
+    from atvsnet_torch.geometry import depth_regression as R
+    from atvsnet_torch.ops import softargmin as S
+    from atvsnet_torch.parallel.depth import DepthSplit
+    from atvsnet_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*shape, device="cpu")
+    split = DepthSplit.of(mesh, depth_num)
+    n_depth = split.size
+    g = torch.Generator().manual_seed(seed)
+    B, h, w = 2, 4, 6
+    cost = torch.randn((B, depth_num, h, w), generator=g) * 3.0
+    cost[0, :, 0, 0] = torch.inf                         # NaN depth
+    cost[0, :depth_num // n_depth, 0, 1] = torch.inf     # the first block sees only +inf
+    seam = depth_num // n_depth
+    cost[1, :, 1, 1] = 40.0
+    cost[1, seam - 1:seam + 1, 1, 1] = 0.0               # the estimate between two blocks
+    start = torch.tensor([0.5, 1.0])
+    interval = torch.tensor([0.05, 0.02])
+    gd = torch.randn((B, h, w, 1), generator=g)
+    res = {}
+    local = cost[:, split.planes].clone().requires_grad_(True)
+    depth = S.softargmin(local, depth_num, start, interval, impl="torch", split=split)
+    depth.backward(gd)
+    whole = cost.clone().requires_grad_(True)
+    want = S.softargmin_torch(whole, start, interval)
+    want.backward(torch.where(torch.isnan(want), 0.0, gd))
+    res["softargmin"] = {"split": depth.detach(), "single": want.detach(),
+                         "grad_split": local.grad, "grad_single": whole.grad[:, split.planes],
+                         "partial": S.softargmin_partial_torch(local.detach(), start, interval,
+                                                               split.offset)}
+    for name, fn in (("prob2depth", lambda v, s: R.prob2depth(v, depth_num, start, interval,
+                                                              True, split=s)),
+                     ("upsample", lambda v, s: R.prob2depth_upsample(v, depth_num, start,
+                                                                     interval, True, split=s))):
+        res[name] = {"split": fn(cost[:, split.planes], split), "single": fn(cost, None)}
+    return numpy_tree(res)
+
+
+def depth_mesh_cases():
+    """make_mesh with a 'depth' axis on a world of 4: the layout of (1, 2, 2) and
+    (2, 1, 2), each rank's block of planes, and the errors."""
+    from atvsnet_torch.parallel.depth import DepthSplit
+    from atvsnet_torch.parallel.mesh import make_mesh
+
+    res = {"errors": {}}
+    for shape in ((1, 2, 2), (2, 1, 2)):
+        mesh = make_mesh(*shape, device="cpu")
+        split = DepthSplit.of(mesh, 16)
+        res[shape] = {"ranks": (mesh.data_rank, mesh.view_rank, mesh.depth_rank),
+                      "extents": (mesh.n_data, mesh.n_view, mesh.n_depth),
+                      "names": mesh.device_mesh.mesh_dim_names,
+                      "planes": (mesh.plane_block(16).start, mesh.plane_block(16).stop),
+                      "split": (split.offset, split.local, split.is_first, split.is_last),
+                      "groups": tuple(g is None for g in (mesh.data_group, mesh.view_group,
+                                                          mesh.depth_group))}
+    flat = make_mesh(2, 2, device="cpu")
+    res["two_axes"] = {"names": flat.device_mesh.mesh_dim_names, "n_depth": flat.n_depth,
+                       "depth_rank": flat.depth_rank, "split": DepthSplit.of(flat, 16)}
+    for name, fn in (("world_size", lambda: make_mesh(1, 1, 3, device="cpu")),
+                     ("uneven_planes", lambda: DepthSplit.of(make_mesh(1, 1, 4, device="cpu"), 16))):
+        try:
+            fn()
+        except ValueError as e:
+            res["errors"][name] = str(e)
+    return res
+
+
+def depth_serving_cases(shape, cfg_kw, request):
+    """DepthEstimator on a built mesh with a 'depth' axis: predict of one request."""
+    from atvsnet_torch.config import PipelineConfig
+    from atvsnet_torch.parallel.mesh import make_mesh
+    from atvsnet_torch.serving import DepthEstimator
+
+    est = DepthEstimator(PipelineConfig(**cfg_kw), seed=0, device="cpu",
+                         mesh=make_mesh(*shape, device="cpu"))
+    return {k: v for k, v in est.predict(*request).items() if isinstance(v, np.ndarray)}
+
+
 def several(*calls):
     """Several of the cases above in one world: [fn(*args) for each (fn, args)]."""
     return [fn(*args) for fn, args in calls]

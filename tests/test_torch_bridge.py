@@ -34,7 +34,7 @@ SPHERES = os.path.join(ROOT, "artifacts", "trained_demo", "spheres_params.npz")
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from make_golden import golden_cases  # noqa: E402
 
-DROPPED = {"act_quant", "act_quant_range", "warp_quant", "fp32_precision", "scoped_vmem_kib"}
+DROPPED = {"fp32_precision", "scoped_vmem_kib"}   # TPU only; the storage quantization is ported
 
 
 def _port_cfg(jcfg) -> PipelineConfig:
@@ -75,7 +75,7 @@ def test_config_fields_and_validation():
     tfields = {f.name for f in dataclasses.fields(PipelineConfig)}
     assert tfields == jfields - DROPPED
     for bad in ({"max_d": 12}, {"max_h": 100}, {"view_num": 1}, {"softargmin_impl": "pallas"},
-                {"compute_dtype": "float16"}):
+                {"compute_dtype": "float16"}, {"act_quant": "int8mxu"}, {"warp_quant": "int8s"}):
         with pytest.raises(ValueError):
             PipelineConfig(**bad)
     assert PipelineConfig(compute_dtype="bfloat16").dtype == torch.bfloat16

@@ -343,3 +343,76 @@ def test_training_loss_launches_and_matches_plain(cuda, remat, conf, launches):
     den = sum(float(ref[n].square().sum()) for n in ref)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     assert (num / den) ** 0.5 < 1e-3
+
+
+# ---- the depth-split entry points: the partial forward and the stats-fed backward ----
+
+def _split_of(depth_num, rank=0, size=1):
+    """A DepthSplit with no group: the merge and the backward's sum over one rank."""
+    from atvsnet_torch.parallel.depth import DepthSplit
+    return DepthSplit(None, rank, size, depth_num)
+
+
+@pytest.mark.parametrize("shape,dtype,path,offset", [((1, 64, 24, 32), torch.float32, "aligned", 64),
+                                                     ((1, 64, 24, 32), torch.bfloat16, "aligned", 0),
+                                                     ((2, 16, 7, 33), torch.float32, "scalar", 16),
+                                                     ((1, 12, 5, 7), torch.bfloat16, "scalar", 3)])
+def test_partial_kernel_matches_plain(cuda, shape, dtype, path, offset):
+    cost, ds, di = _inputs(shape, dtype, cuda)
+    cost.view(shape[0], shape[1], -1)[:, :, ::5] = torch.inf      # all-+inf pixels: (-inf, 0, 0)
+    by_path = dict(S.softargmin_partial_cuda.path_launches)
+    got = S.softargmin_partial_cuda(cost, ds, di, offset)
+    torch.cuda.synchronize()
+    by_path[path] += 1
+    assert S.softargmin_partial_cuda.path_launches == by_path
+    ref = S.softargmin_partial_torch(cost, ds, di, offset)
+    assert torch.equal(got[0], ref[0])                              # the max is exact
+    torch.testing.assert_close(got[1:], ref[1:], rtol=RTOL, atol=ATOL)
+    assert bool(torch.isneginf(got[0]).view(shape[0], -1)[:, ::5].all())
+
+
+@pytest.mark.parametrize("shape,dtype,path,offset", [((1, 64, 24, 32), torch.float32, "aligned", 64),
+                                                     ((1, 64, 24, 32), torch.bfloat16, "aligned", 0),
+                                                     ((2, 16, 7, 33), torch.float32, "scalar", 16)])
+def test_backward_stats_kernel_matches_plain(cuda, shape, dtype, path, offset):
+    cost, ds, di = _inputs(shape, dtype, cuda)
+    depth, stats = S.merge_partials(S.softargmin_partial_torch(cost, ds, di, offset), None)
+    g = torch.randn(depth.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    by_path = dict(S.softargmin_backward_stats_cuda.path_launches)
+    got = S.softargmin_backward_stats_cuda(cost, ds, di, offset, stats, depth, g)
+    torch.cuda.synchronize()
+    by_path[path] += 1
+    assert S.softargmin_backward_stats_cuda.path_launches == by_path
+    ref = S.softargmin_backward_stats_torch(cost, ds, di, offset, stats, depth, g)
+    rtol = RTOL if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=1e-6 * float(ref.float().abs().max()))
+
+
+def test_split_function_routes_through_both_kernels(cuda):
+    """SplitSoftArgminFunction on one rank: the partial and stats-fed kernels give the
+    whole-D soft-argmin and autograd of softargmin_torch."""
+    cost, ds, di = _inputs((1, 32, 32, 40), torch.float32, cuda)
+    leaf = cost.clone().requires_grad_(True)
+    before = (S.softargmin_partial_cuda.launches, S.softargmin_backward_stats_cuda.launches)
+    depth = S.softargmin(leaf, 32, ds, di, impl="cuda", split=_split_of(32))
+    g = torch.randn(depth.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    depth.backward(g)
+    torch.cuda.synchronize()
+    assert (S.softargmin_partial_cuda.launches, S.softargmin_backward_stats_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_leaf = cost.clone().requires_grad_(True)
+    ref = S.softargmin_torch(ref_leaf, ds, di)
+    ref.backward(g)
+    torch.testing.assert_close(depth, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(leaf.grad, ref_leaf.grad, rtol=1e-5,
+                               atol=1e-5 * float(g.abs().max()) * float(S.sweep(32, ds, di).abs().max()))
+
+
+def test_split_entry_points_reject_what_they_cannot_take(cuda):
+    cost, ds, di = _inputs((1, 8, 4, 8), torch.float32, cuda)
+    with pytest.raises(ValueError):
+        S.softargmin_partial_cuda(cost.cpu(), ds, di, 0)
+    depth, stats = S.merge_partials(S.softargmin_partial_torch(cost, ds, di), None)
+    with pytest.raises(ValueError):
+        S.softargmin_backward_stats_cuda(cost, ds, di, 0, stats[:1], depth, depth)

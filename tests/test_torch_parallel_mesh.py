@@ -3,8 +3,9 @@ CPU.
 
   * parse_mesh_spec and auto_mesh_shape are the JAX package's copies: equal results and
     the same errors over a grid that holds tests/test_parallel.py's cases;
-  * on a gloo world of 2 processes: make_mesh refuses a world of the wrong size and the
-    'depth' axis, and lays out rows and pairs as P('data') and P('view') do; AAM over a
+  * on a gloo world of 2 processes: make_mesh refuses a world of the wrong size (with the
+    'depth' axis too: tests/test_torch_parallel_depth.py holds that axis), and lays out
+    rows and pairs as P('data') and P('view') do; AAM over a
     (1, 2) mesh's view group against AAM on all four views in one process, forward and
     backward (bound 1e-5 of each tensor's scale: the sums are cut in two and added in
     another order; measured ~1e-7); the weight gradients summed over the ranks and divided
@@ -67,8 +68,9 @@ def world(tmp_path_factory):
 def test_make_mesh_checks_and_layout(world):
     for rank, res in enumerate(world):
         assert "needs 4 processes, the world has 2" in res["errors"]["world_size"]
-        assert res["errors"]["depth_axis"].startswith("NotImplementedError")
-        assert "ROADMAP" in res["errors"]["depth_axis"]
+        # the 'depth' axis is a third mesh axis now: on a world of 2, (1, 2, 2) is too big
+        assert res["errors"]["depth_axis"] == ("ValueError: a (1, 2, 2) mesh needs 4 processes, "
+                                               "the world has 2")
         lay = res["layout"]
         assert (lay["n_data"], lay["n_view"], lay["data_rank"], lay["view_rank"]) == (1, 2, 0, rank)
         assert lay["pairs"] == [2 * rank, 2 * rank + 1]

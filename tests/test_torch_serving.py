@@ -245,7 +245,8 @@ def test_bucket_key_covers_all_config_fields():
     other = {"view_num": 2, "max_d": 16, "max_h": 64, "max_w": 64, "sample_scale": 0.5,
              "inverse_depth": False, "batch_size": 2, "compute_dtype": "bfloat16", "bn_eps": 1e-2,
              "remat": True, "pair_batch": True, "softargmin_impl": "torch",
-             "reference_compat": True, "prob_threshold": 0.5, "disp_threshold": 0.1,
+             "reference_compat": True, "act_quant": "int8", "act_quant_range": 4.0,
+             "warp_quant": "int8", "prob_threshold": 0.5, "disp_threshold": 0.1,
              "num_consistent": 3, "fusion_depth_min": 0.1, "fusion_depth_max": 10.0,
              "fusion_normal_threshold_deg": 90.0}
     widths = {"fem_base_filter", "crm_base_filter", "shallow_base_filter", "refine_base_filter"}

@@ -149,3 +149,89 @@ def test_dispatch_under_grad_and_no_grad():
         S.SoftArgminFunction.apply(leaf, s.clone().requires_grad_(True), i)
     with pytest.raises(ValueError, match="CUDA"):
         S.softargmin_backward_cuda(c, s, i, out.detach(), torch.from_numpy(g))
+
+
+# ---- the soft-argmin over a split D (parallel.depth): partial forward, merge, stats-fed
+# backward. One process: DepthSplit(None, 0, 1, D) merges and sums over itself alone; the
+# multi-rank merge is held on gloo worlds in tests/test_torch_parallel_depth*.py. ----
+
+@pytest.fixture
+def plain_split_launchers(monkeypatch):
+    """The split kernels' launchers replaced by their plain versions, so that
+    SplitSoftArgminFunction's kernel route runs on CPU tensors."""
+    monkeypatch.setattr(S, "softargmin_partial_cuda", S.softargmin_partial_torch)
+    monkeypatch.setattr(S, "softargmin_backward_stats_cuda", S.softargmin_backward_stats_torch)
+
+
+def _one_rank(depth_num):
+    from atvsnet_torch.parallel.depth import DepthSplit
+    return DepthSplit(None, 0, 1, depth_num)
+
+
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_split_function_matches_jax_vjp(plain_split_launchers, kind, dtype):
+    cost, start, interval, g = _volume(kind, dtype, seed=5)
+    depth, ref, sweep_max = _jax_grad(cost, start, interval, g, dtype)
+    c, s, i = _torch(cost, start, interval, dtype)
+    c.requires_grad_(True)
+    got = S.SplitSoftArgminFunction.apply(c, s, i, _one_rank(c.shape[1]), True)
+    got.backward(torch.from_numpy(g))
+    assert c.grad.dtype == c.dtype and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), depth, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.isnan(got.detach().numpy()), np.isnan(depth))
+    _compare(c.grad.float().numpy(), ref, g, sweep_max, dtype)
+
+
+@pytest.mark.parametrize("kind", ["random", "peaked", "inf"])
+def test_split_function_matches_autograd_of_the_plain_forward(plain_split_launchers, kind):
+    """The Function's kernel route (plain launchers) and its plain route against
+    torch.autograd.grad of softargmin_torch over the whole D."""
+    cost, start, interval, g = _volume(kind, "float32", seed=6)
+    c, s, i = _torch(cost, start, interval, "float32")
+    leaf = c.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(S.softargmin_torch(leaf, s, i), leaf, torch.from_numpy(g))
+    sweep_max = float(S.sweep(c.shape[1], s, i).abs().max())
+    for use_kernel in (True, False):
+        leaf = c.clone().requires_grad_(True)
+        depth = S.softargmin(leaf, c.shape[1], s, i, impl="cuda" if use_kernel else "torch",
+                             split=_one_rank(c.shape[1]))
+        (got,) = torch.autograd.grad(depth, leaf, torch.from_numpy(g))
+        _compare(got.numpy(), want.numpy(), g, sweep_max, "float32")
+
+
+@pytest.mark.parametrize("kind", ["random", "peaked", "inf"])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_partials_at_their_offsets_merge_to_the_whole(kind, parts):
+    """Triples of D's blocks at their global offsets, merged as merge_partials merges the
+    ranks' (the max over the blocks, each block's sums rescaled to it, summed), against
+    softargmin_torch; and the stats-fed backward of each block against the closed form."""
+    cost, start, interval, g = _volume(kind, "float32", seed=7, shape=(2, 24, 6, 10))
+    c, s, i = _torch(cost, start, interval, "float32")
+    blocks = [slice(k * 24 // parts, (k + 1) * 24 // parts) for k in range(parts)]
+    triples = [S.softargmin_partial_torch(c[:, b], s, i, b.start) for b in blocks]
+    m = torch.stack([t[0] for t in triples]).amax(dim=0)
+    sums = sum(t[1:] * torch.exp(t[0] - S.finite_or_zero(m)) for t in triples)
+    depth = (sums[1] / sums[0])[..., None]
+    want = S.softargmin_torch(c, s, i)
+    np.testing.assert_allclose(depth.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.isnan(depth.numpy()), np.isnan(want.numpy()))
+    stats = torch.stack([m, sums[0]])
+    gt = torch.from_numpy(g)
+    got = torch.cat([S.softargmin_backward_stats_torch(c[:, b], s, i, b.start, stats, depth, gt)
+                     for b in blocks], dim=1)
+    ref = S.softargmin_backward_torch(c, s, i, depth, gt)
+    _compare(got.numpy(), ref.numpy(), g, float(S.sweep(24, s, i).abs().max()), "float32")
+
+
+def test_split_entry_points_take_cuda_tensors_only():
+    cost, start, interval, g = _volume("random", "float32", seed=8)
+    c, s, i = _torch(cost, start, interval, "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        S.softargmin_partial_cuda(c, s, i, 0)
+    depth, stats = S.merge_partials(S.softargmin_partial_torch(c, s, i), None)
+    with pytest.raises(ValueError, match="CUDA"):
+        S.softargmin_backward_stats_cuda(c, s, i, 0, stats, depth, torch.from_numpy(g))
+    with pytest.raises(ValueError, match="CUDA"):
+        S.softargmin(c, c.shape[1], s, i, impl="cuda", split=_one_rank(c.shape[1]))
+    with pytest.raises(ValueError, match="planes"):
+        S.softargmin(c, 2 * c.shape[1], s, i, split=_one_rank(c.shape[1]))
