@@ -28,6 +28,8 @@
 //  - Each lane keeps the online-softmax triple (max, sum, weighted sum) per pixel in
 //    registers. The triples of the slices are combined through shared memory by one thread
 //    per pixel, and the tile's depths are written 16 bytes per lane on the aligned path.
+//    When autograd records the call, the same threads also write the combined max and sum
+//    (the softmax statistics, 8 bytes per pixel) for the backward below.
 //  - A chunk or slice whose planes are all +inf (max of -cost = -inf) contributes
 //    (-inf, 0, 0): every exponent is taken against finite_or_zero(max), never as
 //    -inf - -inf. Pixels whose planes are all +inf give 0/0 = NaN, as a softmax does.
@@ -36,19 +38,15 @@
 //  - The sweep value is rebuilt as start + d * interval with unfused multiply and add, so
 //    that it rounds like the plain PyTorch version.
 //
-// The file also holds the backward kernel (below: the gradient with respect to the cost),
-// built on the same tiling, packets and exponent, and the two entry points of a D split
-// across the ranks of a 'depth' mesh axis (atvsnet_torch/parallel/depth.py), which the
-// TPU package leaves to XLA's partitioner around the same Pallas kernel:
-//  - the partial forward: this kernel with the global index of the slice's first plane
-//    (`offset`) added to every sweep index, writing the merged triple of its slices
-//    (max, sum, weighted sum) per pixel instead of their ratio; the wrapper merges the
-//    ranks' triples;
-//  - the stats-fed backward: the backward's second pass alone, its reference point and
-//    sum read from the merged ones.
-// Both are bound by bytes, as the whole-D kernels are: the partial forward reads its slice
-// once and writes 12 bytes per pixel; the stats-fed backward reads its slice once (no first
-// pass: the merged stats come in) and writes its gradient.
+// The file also holds the gradient kernel (below: one streaming pass from those
+// statistics) and the partial forward of a D split across the ranks of a 'depth' mesh
+// axis (atvsnet_torch/parallel/depth.py), which the TPU package leaves to XLA's
+// partitioner around the same Pallas kernel: this kernel with the global index of the
+// slice's first plane (`offset`) added to every sweep index, writing the merged triple of
+// its slices (max, sum, weighted sum) per pixel instead of their ratio; the wrapper merges
+// the ranks' triples. It is bound by bytes as the whole-D forward: it reads its slice once
+// and writes 12 bytes per pixel. The gradient kernel serves the split too, from the
+// merged statistics.
 //
 // Plain C interface for ctypes; the wrapper (atvsnet_torch/ops/softargmin.py) checks
 // shapes, dtypes and contiguity, picks the path and launches on PyTorch's current stream.
@@ -56,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -182,13 +182,16 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, float v, uin
   }
 }
 
-// kPartial = false: out is the depth (B, HW). kPartial = true: out is (3, B, HW), the
-// triple of planes offset .. offset + D - 1 of a longer sweep (the partial forward).
-template <typename Raw, bool kPartial>
+// What the forward writes: the depth (B, HW); the depth and the statistics (2, B, HW), the
+// max of -cost and the sum of exp(-cost - finite_or_zero(max)); or (3, B, HW), the triple
+// of planes offset .. offset + D - 1 of a longer sweep (the partial forward).
+enum Out { kDepth, kDepthStats, kTriple };
+
+template <typename Raw, int kOut>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
                   const float* __restrict__ interval, float* __restrict__ out,
-                  int B, int D, int HW, int offset) {
+                  float* __restrict__ stats, int B, int D, int HW, int offset) {
   constexpr int kPix = Packet<Raw>::kPix;
   constexpr int kChunk = Packet<Raw>::kChunk;
   constexpr int kLanes = kTile / kPix;        // lanes that cover one plane of the tile
@@ -242,45 +245,78 @@ softargmin_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
   }
   __syncthreads();
 
-  // The first kTile threads combine the slices, one pixel each, and write the depth (or
-  // the triple) 16 bytes per lane on the aligned path.
+  // The first kTile threads combine the slices, one pixel each, and write the depth (and
+  // the statistics, or the triple) 16 bytes per lane on the aligned path.
   if (threadIdx.x < kTile) {
     const uint32_t o = blockIdx.x * kTile + threadIdx.x;
     float m, sum, num;
     combine<kSlices>(part, threadIdx.x, m, sum, num);
-    if constexpr (kPartial) {
+    if constexpr (kOut == kTriple) {
       store_tile<kPix>(out, m, o, total);
       store_tile<kPix>(out + total, sum, o, total);
       store_tile<kPix>(out + 2 * (int64_t)total, num, o, total);
     } else {
       store_tile<kPix>(out, num / sum, o, total);
+      if constexpr (kOut == kDepthStats) {
+        store_tile<kPix>(stats, m, o, total);
+        store_tile<kPix>(stats + total, sum, o, total);
+      }
     }
   }
 }
 
+
 // ---------------------------------------------------------------------------------------
-// Backward: the vector-Jacobian product with respect to the cost,
+// Gradient: the vector-Jacobian product with respect to the cost,
 //
-//   dcost[b, d, p] = -g[b, p] * prob[b, d, p] * (sweep[b, d] - depth[b, p]),
-//   prob = softmax_d(-cost),  depth = the forward's output,  g = the incoming gradient.
+//   dcost[b, d, p] = -(g[b, p] / sum[b, p]) * exp(-cost[b, d, p] - ref[b, p])
+//                    * (sweep[b, offset + d] - depth[b, p]),
+//
+// g the incoming gradient, depth the forward's output and (max, sum) the softmax
+// statistics, ref = finite_or_zero(max). One kernel serves both entry points: the whole
+// volume (offset 0, with the statistics that the forward kernel wrote beside the depth)
+// and a rank's slice of a D split (offset = the slice's first plane, with the ranks'
+// merged statistics).
 //
 // Replaces what jax.vjp derives from the XLA formula in atvsnet_tpu/ops/softargmin.py:
 // _fused_bwd (the TPU package has no Pallas backward: pallas_call is not differentiable).
 //
-// Bound: bytes, as the forward: ~8 operations per element against 4 bytes read and 4
-// written (2 and 2 for bf16). Design, the forward's tiling again: a block owns 64 pixels
-// and all of D, its 128 threads are kSlices groups of lanes, each group a slice of D.
-//  - Pass 1: each lane folds its slice into (max, sum of exp) per pixel, as the forward
-//    folds, with the same finite_or_zero rule, so planes of +inf cost get probability 0
-//    and gradient 0. The slices are combined in shared memory into the reference point of
-//    the exponents and g / sum per pixel.
-//  - Pass 2: each lane reads its slice again and writes the gradient, in the cost's dtype
-//    (bf16 rounded to nearest even, as a cast in PyTorch). A block's tile is D x 64 pixels
-//    (32 KB at D = 128 in fp32) and is read again a few microseconds after pass 1, so the
-//    second read is served by the 50 MB L2 at the main path's shapes: the first pass loads
-//    with the default caching, the second with ld.global.cs (last use).
-//  - A pixel whose planes are all +inf gets NaN in every plane, as a softmax gives it.
+// Bound: bytes. ~6 operations per element against the cost read once and its gradient
+// written once (4 + 4 bytes, 2 + 2 for bf16), and 16 bytes of per-pixel maps. Design, in
+// answer to that:
+//  - With the statistics in hand nothing is reduced over D: an element's gradient needs
+//    its own cost and four values of its pixel. So the kernel is one streaming pass, with
+//    no shared memory, no barrier and no second read of the cost.
+//  - Grid: 2-D, (tiles of kGradLanes packets) x (chunks of D). A block is kGradWarps warps
+//    over one tile: a lane owns one packet (16 bytes of a plane on the aligned path, one
+//    element on the scalar path), and the warps take the chunk's planes in turn (warp w
+//    planes w, w + kGradWarps, ...). A thread loads its packet's per-pixel terms once and
+//    reuses them over its planes; the block's other warps find the same terms in L1, so
+//    each chunk reads the 16 bytes of per-pixel maps from L2 once per pixel. The chunk
+//    follows from the volume and the SM count (read once per device): about
+//    kGradThreadsPerSM threads per SM in one wave, at least one plane per warp. At 132 SMs
+//    the train shape (1,32,32,40) bf16 spreads over 5 x 8 blocks, one plane per thread;
+//    (1,128,120,224) fp32 over 210 x 3 blocks of 43 planes, ~11 per thread.
+//  - Loads: a thread starts kGradUnroll 16-byte streaming loads (ld.global.cs: the cost is
+//    read for the last time) before its first exponent, the first batch together with the
+//    per-pixel terms (16-byte loads on the aligned path): 128 bytes per thread, ~64 KB per
+//    SM in flight, against the ~18 KB that 3.35 TB/s at ~0.7 us of latency asks of each of
+//    132 SMs.
+//  - Stores: 16-byte streaming stores (st.global.cs), bf16 rounded to nearest even as a
+//    cast in PyTorch.
+//  - No shared memory and no TMA: nothing is shared between threads and nothing is read
+//    twice, so staging the cost through shared memory, by hand or by bulk copies, adds a
+//    hop and buys nothing. The per-pixel maps that the chunks of a tile share come from L2.
+//  - +inf planes: exp(-inf) = 0 gives probability 0 and gradient 0. A pixel whose planes
+//    are all +inf has max -inf and sum 0, so g / sum is inf and its depth NaN: NaN in every
+//    plane, as a softmax gives it.
 // ---------------------------------------------------------------------------------------
+
+constexpr int kGradLanes = 32;           // packets per block of the gradient kernel
+constexpr int kGradWarps = 4;            // warps per block, taking its planes in turn
+constexpr int kGradThreadsPerSM = 512;   // threads per SM that one wave of its grid aims at
+constexpr int kGradUnroll = 8;           // planes whose loads a thread starts together
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t float_to_bf16_bits(float f) {
   const uint32_t u = __float_as_uint(f);
@@ -303,27 +339,83 @@ __device__ __forceinline__ void pack(const float (&v)[1], unsigned short& r) {
   r = (unsigned short)float_to_bf16_bits(v[0]);
 }
 
-// The backward's second pass for one lane: planes begin .. end - 1 of its slice (sweep
-// indices offset + d), from the per-pixel reference point, g / sum and depth. The cost is
-// read for the last time (ld.global.cs) and the gradient written in the cost's dtype.
-template <typename Raw, int kPix, int kChunk>
-__device__ __forceinline__ void write_gradient(const Raw* __restrict__ src, Raw* __restrict__ dst,
-                                               int begin, int end, int64_t stride, float s0,
-                                               float step, int offset, const float (&ref)[kPix],
-                                               const float (&scale)[kPix],
-                                               const float (&dep)[kPix]) {
-  for (int d0 = begin; d0 < end; d0 += kChunk) {
-    Raw raw[kChunk];
+// Start the loads of planes d0 + j * kGradWarps, j < kGradUnroll (those before end), of
+// one packet.
+template <typename Raw>
+__device__ __forceinline__ void load_planes(Raw (&raw)[kGradUnroll], const Raw* __restrict__ src,
+                                            int d0, int end, int64_t stride) {
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j)
-      raw[j] = (d0 + j < end) ? __ldcs(src + (int64_t)(d0 + j) * stride) : Raw{};
+  for (int j = 0; j < kGradUnroll; ++j) {
+    const int d = d0 + j * kGradWarps;
+    raw[j] = d < end ? __ldcs(src + (int64_t)d * stride) : Raw{};
+  }
+}
+
+// kPix values of a per-pixel map from p: 16-byte loads for packets of 4 or 8 pixels (p is
+// then 16-byte aligned: the wrapper hands aligned maps to the aligned path).
+template <int kPix>
+__device__ __forceinline__ void load_map(const float* __restrict__ p, float (&v)[kPix]) {
+  if constexpr (kPix % 4 == 0) {
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (d0 + j >= end) break;
+    for (int q = 0; q < kPix / 4; ++q) {
+      const float4 r = __ldg(reinterpret_cast<const float4*>(p) + q);
+      v[4 * q] = r.x; v[4 * q + 1] = r.y; v[4 * q + 2] = r.z; v[4 * q + 3] = r.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) v[i] = __ldg(p + i);
+  }
+}
+
+// stats (2, B, HW): the max of -cost and the sum; depth, grad_depth (B, HW); the cost and
+// its gradient (B, D, HW), of which block (x, y) covers planes y * planes .. + planes - 1.
+template <typename Raw>
+__global__ void __launch_bounds__(kGradLanes * kGradWarps,
+                                  kGradThreadsPerSM / (kGradLanes * kGradWarps))
+softargmin_grad_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
+                       const float* __restrict__ interval, const float* __restrict__ stats,
+                       const float* __restrict__ depth, const float* __restrict__ grad_depth,
+                       Raw* __restrict__ grad_cost, int B, int D, int HW, int offset,
+                       int planes) {
+  constexpr int kPix = Packet<Raw>::kPix;
+  const uint32_t total = (uint32_t)B * HW;   // the wrapper keeps B*D*h*w below 2^31
+  // First pixel of this thread's packet, flat over (B, h*w); on the aligned path h*w is a
+  // multiple of kPix, so a packet lies inside one sample.
+  const uint32_t pix0 = (blockIdx.x * kGradLanes + threadIdx.x) * kPix;
+  const int begin = blockIdx.y * planes + threadIdx.y;   // this warp's first plane
+  const int end = min(D, (int)blockIdx.y * planes + planes);
+  if (pix0 >= total || begin >= end) return;
+  const int b = (int)(pix0 / (uint32_t)HW);
+  const int64_t stride = HW / kPix;          // plane stride in packets
+  const int64_t elem = ((int64_t)b * D * HW + (pix0 - (uint32_t)b * HW)) / kPix;
+  const Raw* src = cost + elem;
+  Raw* dst = grad_cost + elem;
+
+  float mx[kPix], total_sum[kPix], g[kPix], dep[kPix];
+  load_map<kPix>(stats + pix0, mx);
+  load_map<kPix>(stats + total + pix0, total_sum);
+  load_map<kPix>(grad_depth + pix0, g);
+  load_map<kPix>(depth + pix0, dep);
+  Raw raw[kGradUnroll];
+  load_planes(raw, src, begin, end, stride);  // in flight with the per-pixel terms
+  const float s0 = start[b];
+  const float step = interval[b];
+  float ref[kPix], scale[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    ref[p] = finite_or_zero(mx[p]);
+    scale[p] = g[p] / total_sum[p];  // inf, and the depth NaN, where every plane is +inf
+  }
+
+  for (int d0 = begin;;) {
+#pragma unroll
+    for (int j = 0; j < kGradUnroll; ++j) {
+      const int d = d0 + j * kGradWarps;
+      if (d >= end) break;
       float c[kPix], out[kPix];
       unpack(raw[j], c);
       // start + d * interval, rounded like the plain version (no fma)
-      const float sw = __fadd_rn(s0, __fmul_rn((float)(offset + d0 + j), step));
+      const float sw = __fadd_rn(s0, __fmul_rn((float)(offset + d), step));
 #pragma unroll
       for (int p = 0; p < kPix; ++p) {
         const float e = exp_of(-c[p] - ref[p]);
@@ -331,239 +423,127 @@ __device__ __forceinline__ void write_gradient(const Raw* __restrict__ src, Raw*
       }
       Raw packed;
       pack(out, packed);
-      __stcs(dst + (int64_t)(d0 + j) * stride, packed);
+      __stcs(dst + (int64_t)d * stride, packed);
     }
+    d0 += kGradUnroll * kGradWarps;
+    if (d0 >= end) break;
+    load_planes(raw, src, d0, end, stride);
   }
-}
-
-// 4 blocks per SM (<= 128 registers): pass 2 holds a chunk of loads and three values per
-// pixel; the main path's volumes make at most 3.2 blocks per SM (420 on 132 SMs).
-template <typename Raw>
-__global__ void __launch_bounds__(kThreads, 4)
-softargmin_backward_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
-                           const float* __restrict__ interval, const float* __restrict__ depth,
-                           const float* __restrict__ grad_depth, Raw* __restrict__ grad_cost,
-                           int B, int D, int HW) {
-  constexpr int kPix = Packet<Raw>::kPix;
-  constexpr int kChunk = Packet<Raw>::kChunk;
-  constexpr int kLanes = kTile / kPix;
-  constexpr int kSlices = kThreads / kLanes;
-  __shared__ __align__(16) float part[2][kSlices][kTile];  // per slice: max, sum
-  __shared__ float stat[3][kTile];                          // per pixel: ref, g / sum, depth
-
-  const int lane = threadIdx.x % kLanes;
-  const int slice = threadIdx.x / kLanes;
-  const uint32_t total = (uint32_t)B * HW;
-  const uint32_t pix0 = blockIdx.x * kTile + lane * kPix;
-  const bool active = pix0 < total;
-
-  int begin = 0, end = 0;
-  int64_t stride = 0, offset = 0;
-  float s0 = 0.f, step = 0.f;
-  float m[kPix], sum[kPix];
-#pragma unroll
-  for (int p = 0; p < kPix; ++p) { m[p] = -INFINITY; sum[p] = 0.f; }
-
-  if (active) {
-    const int b = (int)(pix0 / (uint32_t)HW);
-    const int per = (D + kSlices - 1) / kSlices;
-    begin = min(D, slice * per);
-    end = min(D, begin + per);
-    stride = HW / kPix;
-    offset = ((int64_t)b * D * HW + (pix0 - (uint32_t)b * HW)) / kPix;
-    s0 = start[b];
-    step = interval[b];
-    const Raw* src = cost + offset;
-    for (int d0 = begin; d0 < end; d0 += kChunk) {
-      Raw raw[kChunk];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j)
-        raw[j] = (d0 + j < end) ? __ldg(src + (int64_t)(d0 + j) * stride) : Raw{};
-      float v[kChunk][kPix];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        unpack(raw[j], v[j]);
-#pragma unroll
-        for (int p = 0; p < kPix; ++p) v[j][p] = (d0 + j < end) ? -v[j][p] : -INFINITY;
-      }
-#pragma unroll
-      for (int p = 0; p < kPix; ++p) {
-        float cm = m[p];
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) cm = fmaxf(cm, v[j][p]);
-        const float ref = finite_or_zero(cm);
-        float s = sum[p] * exp_of(m[p] - ref);
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) s += exp_of(v[j][p] - ref);
-        m[p] = cm;
-        sum[p] = s;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int p = 0; p < kPix; ++p) {
-    part[0][slice][lane * kPix + p] = m[p];
-    part[1][slice][lane * kPix + p] = sum[p];
-  }
-  __syncthreads();
-
-  if (threadIdx.x < kTile) {
-    const uint32_t o = blockIdx.x * kTile + threadIdx.x;
-    float mm = -INFINITY;
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s) mm = fmaxf(mm, part[0][s][threadIdx.x]);
-    const float ref = finite_or_zero(mm);
-    float ss = 0.f;
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s)
-      ss += part[1][s][threadIdx.x] * exp_of(part[0][s][threadIdx.x] - ref);
-    const bool in = o < total;
-    stat[0][threadIdx.x] = ref;
-    stat[1][threadIdx.x] = in ? grad_depth[o] / ss : 0.f;  // 0 / 0 = NaN if all planes are +inf
-    stat[2][threadIdx.x] = in ? depth[o] : 0.f;
-  }
-  __syncthreads();
-  if (!active) return;
-
-  float ref[kPix], scale[kPix], dep[kPix];
-#pragma unroll
-  for (int p = 0; p < kPix; ++p) {
-    ref[p] = stat[0][lane * kPix + p];
-    scale[p] = stat[1][lane * kPix + p];
-    dep[p] = stat[2][lane * kPix + p];
-  }
-  write_gradient<Raw, kPix, kChunk>(cost + offset, grad_cost + offset, begin, end, stride, s0,
-                                    step, 0, ref, scale, dep);
-}
-
-// The stats-fed backward of a D split: the slice's planes are offset .. offset + D - 1 of
-// the sweep, and stats (2, B, HW) holds the merged max and sum of every rank's planes, so
-// the per-pixel reference point and g / sum come in and one pass writes the gradient.
-// Same grid, packets and paths as the backward; no shared memory, no barrier.
-template <typename Raw>
-__global__ void __launch_bounds__(kThreads, 4)
-softargmin_backward_stats_kernel(const Raw* __restrict__ cost, const float* __restrict__ start,
-                                 const float* __restrict__ interval,
-                                 const float* __restrict__ stats, const float* __restrict__ depth,
-                                 const float* __restrict__ grad_depth, Raw* __restrict__ grad_cost,
-                                 int B, int D, int HW, int offset) {
-  constexpr int kPix = Packet<Raw>::kPix;
-  constexpr int kChunk = Packet<Raw>::kChunk;
-  constexpr int kLanes = kTile / kPix;
-  constexpr int kSlices = kThreads / kLanes;
-
-  const int lane = threadIdx.x % kLanes;
-  const int slice = threadIdx.x / kLanes;
-  const uint32_t total = (uint32_t)B * HW;
-  const uint32_t pix0 = blockIdx.x * kTile + lane * kPix;
-  if (pix0 >= total) return;
-
-  const int b = (int)(pix0 / (uint32_t)HW);
-  const int per = (D + kSlices - 1) / kSlices;
-  const int begin = min(D, slice * per);
-  const int end = min(D, begin + per);
-  const int64_t elem = ((int64_t)b * D * HW + (pix0 - (uint32_t)b * HW)) / kPix;
-  float ref[kPix], scale[kPix], dep[kPix];
-#pragma unroll
-  for (int p = 0; p < kPix; ++p) {
-    ref[p] = finite_or_zero(stats[pix0 + p]);
-    scale[p] = grad_depth[pix0 + p] / stats[total + pix0 + p];  // NaN if all planes are +inf
-    dep[p] = depth[pix0 + p];
-  }
-  write_gradient<Raw, kPix, kChunk>(cost + elem, grad_cost + elem, begin, end, HW / kPix,
-                                    start[b], interval[b], offset, ref, scale, dep);
 }
 
 // An empty launch of the grid a soft-argmin call uses: its device time is what a launch
 // costs before any byte moves.
-__global__ void __launch_bounds__(kThreads) noop_kernel() {}
+__global__ void noop_kernel() {}
 
 unsigned grid_blocks(int B, int HW) {
   return (unsigned)(((int64_t)B * HW + kTile - 1) / kTile);
 }
 
-template <typename Vec, typename Scalar, bool kPartial>
-int launch(const void* cost, const void* start, const void* interval, void* out,
+int sm_count() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = dev < kMaxDevices ? count[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (dev < kMaxDevices) count[dev] = n;
+  }
+  return n > 0 ? n : 1;
+}
+
+// The gradient kernel's grid for a volume whose packets hold `pix` pixels: tiles of
+// kGradLanes packets, and D cut into as many chunks as bring the grid to about
+// kGradThreadsPerSM threads per SM (at least one plane per warp), of `planes` planes each
+// but the last.
+struct GradGrid {
+  unsigned tiles, chunks;
+  int planes;
+};
+GradGrid grad_grid(int B, int D, int HW, int pix) {
+  const int64_t packets = ((int64_t)B * HW + pix - 1) / pix;
+  const int64_t tiles = std::max<int64_t>(1, (packets + kGradLanes - 1) / kGradLanes);
+  const int64_t want = (int64_t)sm_count() * kGradThreadsPerSM / (kGradLanes * kGradWarps);
+  const int64_t most = (D + kGradWarps - 1) / kGradWarps;
+  const int64_t chunks = std::max<int64_t>(1, std::min<int64_t>(most, (want + tiles - 1) / tiles));
+  const int planes = (int)((D + chunks - 1) / chunks);
+  return {(unsigned)tiles, (unsigned)((D + planes - 1) / planes), planes};
+}
+
+template <typename Vec, typename Scalar, int kOut>
+int launch(const void* cost, const void* start, const void* interval, void* out, void* stats,
            int B, int D, int HW, int offset, int aligned, void* stream_ptr) {
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
   const unsigned blocks = grid_blocks(B, HW);
   const float* s = (const float*)start;
   const float* i = (const float*)interval;
   if (!aligned) {
-    softargmin_kernel<Scalar, kPartial><<<blocks, kThreads, 0, stream>>>(
-        (const Scalar*)cost, s, i, (float*)out, B, D, HW, offset);
+    softargmin_kernel<Scalar, kOut><<<blocks, kThreads, 0, stream>>>(
+        (const Scalar*)cost, s, i, (float*)out, (float*)stats, B, D, HW, offset);
     return (int)cudaGetLastError();
   }
   // 16-byte loads and stores fault on anything else
-  if ((uintptr_t)cost % 16 || (uintptr_t)out % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
+  if ((uintptr_t)cost % 16 || (uintptr_t)out % 16 || (uintptr_t)stats % 16 ||
+      ((int64_t)HW * sizeof(Scalar)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  softargmin_kernel<Vec, kPartial><<<blocks, kThreads, 0, stream>>>(
-      (const Vec*)cost, s, i, (float*)out, B, D, HW, offset);
+  softargmin_kernel<Vec, kOut><<<blocks, kThreads, 0, stream>>>(
+      (const Vec*)cost, s, i, (float*)out, (float*)stats, B, D, HW, offset);
   return (int)cudaGetLastError();
 }
 
 template <typename Vec, typename Scalar>
-int launch_backward(const void* cost, const void* start, const void* interval, const void* depth,
-                    const void* grad_depth, void* grad_cost, int B, int D, int HW, int aligned,
-                    void* stream_ptr) {
-  const cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const unsigned blocks = grid_blocks(B, HW);
-  const float* s = (const float*)start;
-  const float* i = (const float*)interval;
-  const float* d = (const float*)depth;
-  const float* g = (const float*)grad_depth;
-  if (!aligned) {
-    softargmin_backward_kernel<Scalar><<<blocks, kThreads, 0, stream>>>(
-        (const Scalar*)cost, s, i, d, g, (Scalar*)grad_cost, B, D, HW);
-    return (int)cudaGetLastError();
-  }
-  if ((uintptr_t)cost % 16 || (uintptr_t)grad_cost % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
-    return (int)cudaErrorMisalignedAddress;
-  softargmin_backward_kernel<Vec><<<blocks, kThreads, 0, stream>>>(
-      (const Vec*)cost, s, i, d, g, (Vec*)grad_cost, B, D, HW);
-  return (int)cudaGetLastError();
+int launch_forward(const void* cost, const void* start, const void* interval, void* out,
+                   void* stats, int B, int D, int HW, int aligned, void* stream) {
+  if (stats)
+    return launch<Vec, Scalar, kDepthStats>(cost, start, interval, out, stats, B, D, HW, 0,
+                                            aligned, stream);
+  return launch<Vec, Scalar, kDepth>(cost, start, interval, out, nullptr, B, D, HW, 0, aligned,
+                                     stream);
 }
 
 template <typename Vec, typename Scalar>
-int launch_backward_stats(const void* cost, const void* start, const void* interval,
-                          const void* stats, const void* depth, const void* grad_depth,
-                          void* grad_cost, int B, int D, int HW, int offset, int aligned,
-                          void* stream_ptr) {
+int launch_gradient(const void* cost, const void* start, const void* interval, const void* stats,
+                    const void* depth, const void* grad_depth, void* grad_cost, int B, int D,
+                    int HW, int offset, int aligned, void* stream_ptr) {
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const unsigned blocks = grid_blocks(B, HW);
   const float* s = (const float*)start;
   const float* i = (const float*)interval;
   const float* st = (const float*)stats;
   const float* d = (const float*)depth;
   const float* g = (const float*)grad_depth;
+  const dim3 block(kGradLanes, kGradWarps);
   if (!aligned) {
-    softargmin_backward_stats_kernel<Scalar><<<blocks, kThreads, 0, stream>>>(
-        (const Scalar*)cost, s, i, st, d, g, (Scalar*)grad_cost, B, D, HW, offset);
+    const GradGrid grid = grad_grid(B, D, HW, 1);
+    softargmin_grad_kernel<Scalar><<<dim3(grid.tiles, grid.chunks), block, 0, stream>>>(
+        (const Scalar*)cost, s, i, st, d, g, (Scalar*)grad_cost, B, D, HW, offset, grid.planes);
     return (int)cudaGetLastError();
   }
-  if ((uintptr_t)cost % 16 || (uintptr_t)grad_cost % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
+  if ((uintptr_t)cost % 16 || (uintptr_t)grad_cost % 16 || (uintptr_t)st % 16 ||
+      (uintptr_t)d % 16 || (uintptr_t)g % 16 || ((int64_t)HW * sizeof(Scalar)) % 16)
     return (int)cudaErrorMisalignedAddress;
-  softargmin_backward_stats_kernel<Vec><<<blocks, kThreads, 0, stream>>>(
-      (const Vec*)cost, s, i, st, d, g, (Vec*)grad_cost, B, D, HW, offset);
+  const GradGrid grid = grad_grid(B, D, HW, Packet<Vec>::kPix);
+  softargmin_grad_kernel<Vec><<<dim3(grid.tiles, grid.chunks), block, 0, stream>>>(
+      (const Vec*)cost, s, i, st, d, g, (Vec*)grad_cost, B, D, HW, offset, grid.planes);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// cost (B, D, HW) contiguous, start and interval (B,) fp32, out (B, HW) fp32. `aligned`
-// selects the 16-byte path; its conditions are checked here again. Returns a cudaError_t.
+// cost (B, D, HW) contiguous, start and interval (B,) fp32, out (B, HW) fp32; stats, when
+// not null, (2, B, HW) fp32 gets the max of -cost and the sum of exp(-cost - ref) per
+// pixel, ref = finite_or_zero(max). `aligned` selects the 16-byte path; its conditions are
+// checked here again. Returns a cudaError_t.
 extern "C" int atvsnet_softargmin_f32(const void* cost, const void* start, const void* interval,
-                                      void* out, int B, int D, int HW, int aligned,
+                                      void* out, void* stats, int B, int D, int HW, int aligned,
                                       void* stream) {
-  return launch<float4, float, false>(cost, start, interval, out, B, D, HW, 0, aligned, stream);
+  return launch_forward<float4, float>(cost, start, interval, out, stats, B, D, HW, aligned,
+                                       stream);
 }
 
 extern "C" int atvsnet_softargmin_bf16(const void* cost, const void* start, const void* interval,
-                                       void* out, int B, int D, int HW, int aligned,
+                                       void* out, void* stats, int B, int D, int HW, int aligned,
                                        void* stream) {
-  return launch<uint4, unsigned short, false>(cost, start, interval, out, B, D, HW, 0, aligned,
-                                              stream);
+  return launch_forward<uint4, unsigned short>(cost, start, interval, out, stats, B, D, HW,
+                                               aligned, stream);
 }
 
 // The partial forward of a D split: cost (B, D, HW) holds planes offset .. offset + D - 1
@@ -573,59 +553,61 @@ extern "C" int atvsnet_softargmin_bf16(const void* cost, const void* start, cons
 extern "C" int atvsnet_softargmin_partial_f32(const void* cost, const void* start,
                                               const void* interval, void* out, int B, int D,
                                               int HW, int offset, int aligned, void* stream) {
-  return launch<float4, float, true>(cost, start, interval, out, B, D, HW, offset, aligned,
-                                     stream);
+  return launch<float4, float, kTriple>(cost, start, interval, out, nullptr, B, D, HW, offset,
+                                        aligned, stream);
 }
 
 extern "C" int atvsnet_softargmin_partial_bf16(const void* cost, const void* start,
                                                const void* interval, void* out, int B, int D,
                                                int HW, int offset, int aligned, void* stream) {
-  return launch<uint4, unsigned short, true>(cost, start, interval, out, B, D, HW, offset,
-                                             aligned, stream);
+  return launch<uint4, unsigned short, kTriple>(cost, start, interval, out, nullptr, B, D, HW,
+                                                offset, aligned, stream);
 }
 
-// The backward: cost (B, D, HW) as the forward's; depth and grad_depth (B, HW) fp32;
-// grad_cost (B, D, HW) in the cost's dtype. `aligned` as above, with grad_cost's pointer
-// checked too. Returns a cudaError_t.
+// The backward: cost (B, D, HW) holds planes offset .. offset + D - 1 of the sweep (offset
+// 0 for the whole volume, the slice's first plane for a rank of a D split); stats
+// (2, B, HW) the forward's statistics, or the ranks' merged ones; depth and grad_depth
+// (B, HW) fp32; grad_cost (B, D, HW) in the cost's dtype. `aligned` as above, with the
+// pointers of grad_cost and of the three maps checked too. Returns a cudaError_t.
 extern "C" int atvsnet_softargmin_backward_f32(const void* cost, const void* start,
-                                               const void* interval, const void* depth,
-                                               const void* grad_depth, void* grad_cost, int B,
-                                               int D, int HW, int aligned, void* stream) {
-  return launch_backward<float4, float>(cost, start, interval, depth, grad_depth, grad_cost, B,
-                                        D, HW, aligned, stream);
+                                               const void* interval, const void* stats,
+                                               const void* depth, const void* grad_depth,
+                                               void* grad_cost, int B, int D, int HW,
+                                               int offset, int aligned, void* stream) {
+  return launch_gradient<float4, float>(cost, start, interval, stats, depth, grad_depth,
+                                        grad_cost, B, D, HW, offset, aligned, stream);
 }
 
 extern "C" int atvsnet_softargmin_backward_bf16(const void* cost, const void* start,
-                                                const void* interval, const void* depth,
-                                                const void* grad_depth, void* grad_cost, int B,
-                                                int D, int HW, int aligned, void* stream) {
-  return launch_backward<uint4, unsigned short>(cost, start, interval, depth, grad_depth,
-                                                grad_cost, B, D, HW, aligned, stream);
+                                                const void* interval, const void* stats,
+                                                const void* depth, const void* grad_depth,
+                                                void* grad_cost, int B, int D, int HW,
+                                                int offset, int aligned, void* stream) {
+  return launch_gradient<uint4, unsigned short>(cost, start, interval, stats, depth, grad_depth,
+                                                grad_cost, B, D, HW, offset, aligned, stream);
 }
 
-// The stats-fed backward of a D split: cost (B, D, HW) as the partial forward's; stats
-// (2, B, HW) the merged max and sum; depth and grad_depth (B, HW) fp32; grad_cost
-// (B, D, HW) in the cost's dtype. Returns a cudaError_t.
-extern "C" int atvsnet_softargmin_backward_stats_f32(const void* cost, const void* start,
-                                                     const void* interval, const void* stats,
-                                                     const void* depth, const void* grad_depth,
-                                                     void* grad_cost, int B, int D, int HW,
-                                                     int offset, int aligned, void* stream) {
-  return launch_backward_stats<float4, float>(cost, start, interval, stats, depth, grad_depth,
-                                              grad_cost, B, D, HW, offset, aligned, stream);
+// The gradient kernel's grid for a volume (B, D, HW) whose packets hold `pix` pixels (4 or
+// 8 on the aligned path, 1 on the scalar one) on the current device: grid[0] tiles, grid[1]
+// chunks of D, grid[2] planes per chunk.
+extern "C" int atvsnet_softargmin_grad_grid(int B, int D, int HW, int pix, int* grid) {
+  const GradGrid g = grad_grid(B, D, HW, pix);
+  grid[0] = (int)g.tiles;
+  grid[1] = (int)g.chunks;
+  grid[2] = g.planes;
+  return (int)cudaGetLastError();
 }
 
-extern "C" int atvsnet_softargmin_backward_stats_bf16(const void* cost, const void* start,
-                                                      const void* interval, const void* stats,
-                                                      const void* depth, const void* grad_depth,
-                                                      void* grad_cost, int B, int D, int HW,
-                                                      int offset, int aligned, void* stream) {
-  return launch_backward_stats<uint4, unsigned short>(cost, start, interval, stats, depth,
-                                                      grad_depth, grad_cost, B, D, HW, offset,
-                                                      aligned, stream);
-}
-
-extern "C" int atvsnet_softargmin_noop(int B, int HW, void* stream) {
-  noop_kernel<<<grid_blocks(B, HW), kThreads, 0, (cudaStream_t)stream>>>();
+// An empty launch of the forward's grid (backward = 0) or of the gradient kernel's
+// (backward = 1, packets of `pix` pixels).
+extern "C" int atvsnet_softargmin_noop(int B, int D, int HW, int pix, int backward,
+                                       void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (backward) {
+    const GradGrid g = grad_grid(B, D, HW, pix);
+    noop_kernel<<<dim3(g.tiles, g.chunks), dim3(kGradLanes, kGradWarps), 0, s>>>();
+  } else {
+    noop_kernel<<<grid_blocks(B, HW), kThreads, 0, s>>>();
+  }
   return (int)cudaGetLastError();
 }

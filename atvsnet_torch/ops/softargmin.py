@@ -16,13 +16,17 @@ version that the kernel is held against; `softargmin_split_torch` is a plain ver
 mirrors the kernel's split of D into slices and chunks. `softargmin` picks by `impl`
 ("auto" = the kernel for CUDA tensors, `softargmin_torch` for CPU tensors). There is no
 fallback from the kernel to a plain version: a CUDA tensor that the kernel cannot take
-raises.
+raises. With `with_stats=True` both also return the softmax statistics, (2, B, h, w)
+fp32: the max of -cost and the sum of exp(-cost - finite_or_zero(max)) per pixel.
 
-The gradient: `softargmin_backward_cuda` launches the backward kernel of the same source
-(same paths, its own counters), d cost = -g * softmax(-cost) * (sweep - depth), and
-`softargmin_backward_torch` is its plain version. `SoftArgminFunction` ties a forward and
-a backward together for autograd; `softargmin` uses it on the kernel's route whenever
-gradients are being recorded for the cost, and the direct launch otherwise.
+The gradient, d cost = -g * softmax(-cost) * (sweep - depth), is one streaming kernel of
+the same source (same paths) fed by those statistics. `softargmin_backward_cuda` launches
+it for the whole volume with the forward's statistics, and counts its launches;
+`softargmin_backward_torch` is the closed form from the depth that it is held against.
+`SoftArgminFunction` ties a forward and a backward together for autograd: its forward
+asks the kernel for the statistics and saves them. `softargmin` uses it on the kernel's
+route whenever gradients are being recorded for the cost, and the direct launch (no
+statistics) otherwise.
 
 Over a D split across the ranks of a 'depth' mesh axis (parallel.depth.DepthSplit) each
 rank holds planes [offset, offset + D_local) of the cost, and two more entry points of the
@@ -32,7 +36,8 @@ same source serve it:
     `merge_partials` merges the ranks' triples (plain PyTorch on (B, h, w) maps, two
     all-reduces) into the depth and the global (max, sum);
   * `softargmin_backward_stats_cuda`: the slice's gradient from the global (max, sum), the
-    merged depth and the incoming gradient, in one pass (no recomputed max or sum).
+    merged depth and the incoming gradient: the gradient kernel at the slice's offset,
+    with its own counters.
 `softargmin_partial_torch` and `softargmin_backward_stats_torch` are their plain versions;
 the two launchers count their launches as the others do; `SplitSoftArgminFunction` ties
 them together for autograd.
@@ -97,20 +102,18 @@ def _library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             # pointers and the stream as c_void_p: ctypes would otherwise cut them to 32 bits
             for fn in (lib.atvsnet_softargmin_f32, lib.atvsnet_softargmin_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             for fn in (lib.atvsnet_softargmin_backward_f32, lib.atvsnet_softargmin_backward_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             for fn in (lib.atvsnet_softargmin_partial_f32, lib.atvsnet_softargmin_partial_bf16):
                 fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            for fn in (lib.atvsnet_softargmin_backward_stats_f32,
-                       lib.atvsnet_softargmin_backward_stats_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.atvsnet_softargmin_grad_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            lib.atvsnet_softargmin_noop.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            for fn in (lib.atvsnet_softargmin_grad_grid, lib.atvsnet_softargmin_noop):
                 fn.restype = ctypes.c_int
-            lib.atvsnet_softargmin_noop.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.atvsnet_softargmin_noop.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -130,13 +133,17 @@ def _compute_dtype(cost_volume: torch.Tensor) -> torch.dtype:
 
 
 def softargmin_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
-                     depth_interval: torch.Tensor) -> torch.Tensor:
+                     depth_interval: torch.Tensor, with_stats: bool = False):
     """Plain version: cost (B, D, h, w) any float dtype -> depth (B, h, w, 1) fp32 (fp64
-    for an fp64 cost)."""
+    for an fp64 cost); with_stats: (depth, stats), stats (2, B, h, w) the max of -cost and
+    the sum of exp(-cost - finite_or_zero(max)), rows 0-1 of softargmin_partial_torch."""
     D = cost_volume.shape[1]
     p = torch.softmax(-cost_volume.to(_compute_dtype(cost_volume)), dim=1)
     s = sweep(D, depth_start, depth_interval)
-    return torch.sum(s[:, :, None, None] * p, dim=1)[..., None]
+    depth = torch.sum(s[:, :, None, None] * p, dim=1)[..., None]
+    if not with_stats:
+        return depth
+    return depth, softargmin_partial_torch(cost_volume, depth_start, depth_interval)[:2]
 
 
 def finite_or_zero(m: torch.Tensor) -> torch.Tensor:
@@ -188,10 +195,10 @@ def kernel_path(data_ptr: int, plane_elements: int, dtype: torch.dtype) -> str:
 
 
 def _check_launch_inputs(name: str, cost_volume: torch.Tensor, depth_start: torch.Tensor,
-                        depth_interval: torch.Tensor, maps=()) -> None:
-    """What both kernels need: cost (B, D, h, w) fp32/bf16 contiguous with fewer than 2^31
-    elements, start/interval (B,) fp32, and each of `maps` (B, h, w, 1) fp32, all contiguous
-    on the cost's CUDA device."""
+                        depth_interval: torch.Tensor, maps=(), stats=None) -> None:
+    """What the kernels need: cost (B, D, h, w) fp32/bf16 contiguous with fewer than 2^31
+    elements, start/interval (B,) fp32, each of `maps` (B, h, w, 1) fp32 and `stats`, if
+    given, (2, B, h, w) fp32, all contiguous on the cost's CUDA device."""
     if cost_volume.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {cost_volume.device}")
     if cost_volume.dim() != 4:
@@ -199,6 +206,8 @@ def _check_launch_inputs(name: str, cost_volume: torch.Tensor, depth_start: torc
     B, D, h, w = cost_volume.shape
     checks = [("depth_start", depth_start, (B,)), ("depth_interval", depth_interval, (B,))]
     checks += [(n, t, (B, h, w, 1)) for n, t in maps]
+    if stats is not None:
+        checks.append(("stats", stats, (2, B, h, w)))
     for arg, t, shape in checks:
         if t.device != cost_volume.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{arg} must be {shape} float32 on {cost_volume.device}, "
@@ -224,22 +233,26 @@ def _dtype_suffix(dtype: torch.dtype) -> str:
 
 
 def softargmin_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
-                    depth_interval: torch.Tensor) -> torch.Tensor:
+                    depth_interval: torch.Tensor, with_stats: bool = False):
     """Launch the CUDA kernel: cost (B, D, h, w) fp32/bf16 contiguous, start/interval (B,)
-    fp32 contiguous, all on one CUDA device -> depth (B, h, w, 1) fp32."""
+    fp32 contiguous, all on one CUDA device -> depth (B, h, w, 1) fp32; with_stats: (depth,
+    stats), the kernel also writing the (2, B, h, w) fp32 statistics of softargmin_torch."""
     _check_launch_inputs("softargmin_cuda", cost_volume, depth_start, depth_interval)
     B, D, h, w = cost_volume.shape
     fn = getattr(_library(), "atvsnet_softargmin_" + _dtype_suffix(cost_volume.dtype))
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
     out = torch.empty((B, h, w, 1), device=cost_volume.device, dtype=torch.float32)
+    stats = (torch.empty((2, B, h, w), device=cost_volume.device, dtype=torch.float32)
+             if with_stats else None)
     with torch.cuda.device(cost_volume.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(cost_volume.data_ptr(), depth_start.data_ptr(), depth_interval.data_ptr(),
-                 out.data_ptr(), B, D, h * w, int(path == "aligned"), stream)
+                 out.data_ptr(), None if stats is None else stats.data_ptr(), B, D, h * w,
+                 int(path == "aligned"), stream)
     if err != 0:
         raise RuntimeError(f"softargmin kernel launch failed on the {path} path: cudaError {err}")
     _count(softargmin_cuda, path, (B, D, h, w))
-    return out
+    return (out, stats) if with_stats else out
 
 
 def softargmin_backward_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
@@ -256,29 +269,57 @@ def softargmin_backward_torch(cost_volume: torch.Tensor, depth_start: torch.Tens
     return (-(g * p) * (s - d)).to(cost_volume.dtype)
 
 
-def softargmin_backward_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
-                             depth_interval: torch.Tensor, depth: torch.Tensor,
-                             grad: torch.Tensor) -> torch.Tensor:
-    """Launch the backward kernel: the inputs of `softargmin_cuda`, plus the forward's
-    depth and the incoming gradient, both (B, h, w, 1) fp32 contiguous -> the gradient
-    with respect to the cost, (B, D, h, w) in the cost's dtype. The path follows the same
-    rule as the forward's (`kernel_path`); the output is a fresh, aligned allocation."""
-    _check_launch_inputs("softargmin_backward_cuda", cost_volume, depth_start, depth_interval,
-                         maps=(("depth", depth), ("grad", grad)))
+def _launch_gradient(counter, cost_volume, depth_start, depth_interval, offset, stats, depth,
+                     grad) -> torch.Tensor:
+    """Launch the gradient kernel on planes offset .. offset + D - 1 of the sweep and count
+    the launch on `counter` (one of the two entry points): the gradient with respect to
+    the cost, (B, D, h, w) in the cost's dtype, a fresh aligned allocation. The path
+    follows the forward's rule (`kernel_path`)."""
+    name = counter.__name__
+    _check_launch_inputs(name, cost_volume, depth_start, depth_interval,
+                         maps=(("depth", depth), ("grad", grad)), stats=stats)
     B, D, h, w = cost_volume.shape
     fn = getattr(_library(), "atvsnet_softargmin_backward_" + _dtype_suffix(cost_volume.dtype))
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
+    # the aligned path reads the maps 16 bytes at a time: a map that starts elsewhere (a
+    # view into a larger buffer) is copied, which costs a few bytes per pixel
+    stats, depth, grad = (t if t.data_ptr() % ALIGNMENT == 0 else t.clone()
+                          for t in (stats, depth, grad))
     out = torch.empty_like(cost_volume)
     with torch.cuda.device(cost_volume.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(cost_volume.data_ptr(), depth_start.data_ptr(), depth_interval.data_ptr(),
-                 depth.data_ptr(), grad.data_ptr(), out.data_ptr(), B, D, h * w,
-                 int(path == "aligned"), stream)
+                 stats.data_ptr(), depth.data_ptr(), grad.data_ptr(), out.data_ptr(), B, D,
+                 h * w, int(offset), int(path == "aligned"), stream)
     if err != 0:
-        raise RuntimeError(f"softargmin backward kernel launch failed on the {path} path: "
+        raise RuntimeError(f"{name}: gradient kernel launch failed on the {path} path: "
                            f"cudaError {err}")
-    _count(softargmin_backward_cuda, path, (B, D, h, w))
+    _count(counter, path, (B, D, h, w))
     return out
+
+
+def softargmin_backward_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                             depth_interval: torch.Tensor, stats: torch.Tensor,
+                             depth: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """Launch the gradient kernel on the whole volume: the inputs of `softargmin_cuda`, the
+    statistics (2, B, h, w) that it returned with the depth, the depth and the incoming
+    gradient (B, h, w, 1), all fp32 contiguous -> the gradient with respect to the cost,
+    (B, D, h, w) in the cost's dtype (softargmin_backward_torch's closed form)."""
+    return _launch_gradient(softargmin_backward_cuda, cost_volume, depth_start,
+                            depth_interval, 0, stats, depth, grad)
+
+
+def gradient_grid(shape, dtype: torch.dtype, path: str, device=None) -> tuple[int, int, int]:
+    """The gradient kernel's grid for a (B, D, h, w) volume of `dtype` on `path` on the
+    current (or given) CUDA device: (pixel tiles, chunks of D, planes per chunk)."""
+    B, D, h, w = shape
+    pix = ALIGNMENT // torch.empty((), dtype=dtype).element_size() if path == "aligned" else 1
+    grid = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = _library().atvsnet_softargmin_grad_grid(B, D, h * w, pix, grid)
+    if err != 0:
+        raise RuntimeError(f"reading the gradient kernel's grid failed: cudaError {err}")
+    return tuple(grid)
 
 
 # ---- the soft-argmin over a D split across ranks ----
@@ -352,30 +393,12 @@ def softargmin_backward_stats_cuda(cost_volume: torch.Tensor, depth_start: torch
                                    depth_interval: torch.Tensor, offset: int,
                                    stats: torch.Tensor, depth: torch.Tensor,
                                    grad: torch.Tensor) -> torch.Tensor:
-    """Launch the stats-fed backward kernel: the inputs of softargmin_backward_stats_torch,
-    stats (2, B, h, w), depth and grad (B, h, w, 1), all fp32 contiguous -> the slice's
-    gradient (B, D_local, h, w) in the cost's dtype."""
-    _check_launch_inputs("softargmin_backward_stats_cuda", cost_volume, depth_start,
-                         depth_interval, maps=(("depth", depth), ("grad", grad)))
-    B, D, h, w = cost_volume.shape
-    if (stats.device != cost_volume.device or stats.dtype != torch.float32
-            or tuple(stats.shape) != (2, B, h, w) or not stats.is_contiguous()):
-        raise ValueError(f"stats must be (2, {B}, {h}, {w}) float32 contiguous on "
-                         f"{cost_volume.device}, got {tuple(stats.shape)} {stats.dtype} on "
-                         f"{stats.device}")
-    fn = getattr(_library(), "atvsnet_softargmin_backward_stats_" + _dtype_suffix(cost_volume.dtype))
-    path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
-    out = torch.empty_like(cost_volume)
-    with torch.cuda.device(cost_volume.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cost_volume.data_ptr(), depth_start.data_ptr(), depth_interval.data_ptr(),
-                 stats.data_ptr(), depth.data_ptr(), grad.data_ptr(), out.data_ptr(), B, D,
-                 h * w, int(offset), int(path == "aligned"), stream)
-    if err != 0:
-        raise RuntimeError(f"softargmin stats-fed backward kernel launch failed on the {path} "
-                           f"path: cudaError {err}")
-    _count(softargmin_backward_stats_cuda, path, (B, D, h, w))
-    return out
+    """Launch the gradient kernel on a D split's slice: the inputs of
+    softargmin_backward_stats_torch, stats (2, B, h, w) the merged ones, depth and grad
+    (B, h, w, 1), all fp32 contiguous -> the slice's gradient (B, D_local, h, w) in the
+    cost's dtype."""
+    return _launch_gradient(softargmin_backward_stats_cuda, cost_volume, depth_start,
+                            depth_interval, offset, stats, depth, grad)
 
 
 def reset_launch_counts() -> None:
@@ -390,13 +413,16 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
-def empty_launch(cost_volume: torch.Tensor) -> None:
-    """Launch the library's no-op kernel on the grid that `softargmin_cuda` (and the
-    backward) uses for this volume. It moves no byte and counts as no launch: its device
-    time is what a launch of that grid costs."""
-    B, _, h, w = cost_volume.shape
+def empty_launch(cost_volume: torch.Tensor, backward: bool = False) -> None:
+    """Launch the library's no-op kernel on the grid that `softargmin_cuda` (or, with
+    `backward`, the gradient kernel) uses for this volume. It moves no byte and counts as
+    no launch: its device time is what a launch of that grid costs."""
+    B, D, h, w = cost_volume.shape
+    path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
+    pix = ALIGNMENT // cost_volume.element_size() if path == "aligned" else 1
     with torch.cuda.device(cost_volume.device):
-        err = _library().atvsnet_softargmin_noop(B, h * w, torch.cuda.current_stream().cuda_stream)
+        err = _library().atvsnet_softargmin_noop(B, D, h * w, pix, int(backward),
+                                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"empty launch failed: cudaError {err}")
 
@@ -407,8 +433,9 @@ class SoftArgminFunction(torch.autograd.Function):
 
     `apply(cost, depth_start, depth_interval)`: cost (B, D, h, w) fp32/bf16, start and
     interval (B,) fp32, all CUDA tensors -> depth (B, h, w, 1) fp32. It launches the two
-    kernels (`softargmin_cuda`, then `softargmin_backward_cuda` on the saved cost and
-    depth) and raises ValueError for a tensor that is not on the card, as they do; the
+    kernels (`softargmin_cuda` with the statistics, then `softargmin_backward_cuda` on the
+    saved cost, statistics and depth: under torch.utils.checkpoint the recomputed forward
+    writes them again) and raises ValueError for a tensor that is not on the card, as they do; the
     plain route's gradient is autograd of `softargmin_torch`. The gradient reaches the
     cost only. The sweep comes from the cameras, which training never differentiates
     (neither does the JAX package): the backward returns None for start and interval, and
@@ -420,16 +447,16 @@ class SoftArgminFunction(torch.autograd.Function):
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             raise ValueError("the soft-argmin's gradient reaches the cost only: depth_start "
                              "and depth_interval must not require grad")
-        depth = softargmin_cuda(cost_volume, depth_start, depth_interval)
-        ctx.save_for_backward(cost_volume, depth_start, depth_interval, depth)
+        depth, stats = softargmin_cuda(cost_volume, depth_start, depth_interval, with_stats=True)
+        ctx.save_for_backward(cost_volume, depth_start, depth_interval, stats, depth)
         return depth
 
     @staticmethod
     def backward(ctx, grad):
-        cost_volume, depth_start, depth_interval, depth = ctx.saved_tensors
+        cost_volume, depth_start, depth_interval, stats, depth = ctx.saved_tensors
         grad = grad.to(depth.dtype).contiguous()
-        return (softargmin_backward_cuda(cost_volume, depth_start, depth_interval, depth, grad),
-                None, None)
+        return (softargmin_backward_cuda(cost_volume, depth_start, depth_interval, stats, depth,
+                                         grad), None, None)
 
 
 class SplitSoftArgminFunction(torch.autograd.Function):

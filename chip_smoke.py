@@ -12,11 +12,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 (odd h*w, D = 1, 12, 130, B = 3, a pointer that is not 16-byte aligned)
                 and on volumes with planes of +inf cost; each line names the kernel's
                 path, "aligned" (16-byte loads) or "scalar", and the path's counter is
-                checked. Then the backward kernel (direction "backward") against the
-                closed-form plain backward (fp32 rtol 1e-5, bf16 one bf16 ulp, atol 1e-6
-                of the largest gradient) and against autograd of the plain forward (atol
-                1e-5 * max|g| * max|sweep|), at the train shape (1,32,32,40), the
-                flagship's shapes, odd h*w, D = 1 and 130, a misaligned pointer, +inf planes
+                checked; each case also asks for the softmax statistics that autograd
+                saves: the same depth to the bit, the max to the bit and the sum at rtol
+                1e-5 against softargmin_partial_torch at offset 0. Then the gradient
+                kernel (direction "backward", through softargmin_backward_cuda with the
+                plain forward's statistics) against the closed-form plain backward (fp32
+                rtol 1e-5, bf16 one bf16 ulp, atol 1e-6 of the largest gradient) and
+                against autograd of the plain forward (atol 1e-5 * max|g| * max|sweep|),
+                at the train shape (1,32,32,40), the flagship's shapes, D not a multiple
+                of the kernel's chunk of planes, B = 2, odd h*w, D = 1 and 130, a
+                misaligned pointer, +inf planes
   4. small      a 3-view 64x96 D32 forward on trained weights, on the GPU (kernel) and on
                 the CPU (plain path): the two must agree and recover the rendered scene
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
@@ -28,7 +33,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 cuDNN algorithms); the forward with the port's activation
                 (torch.maximum(y, 0), the JAX package's tie rule) against torch.relu, in
                 turns; and per-shape kernel times beside the plain version's, the HBM
-                bound and an empty launch of the same grid
+                bound and an empty launch of the same grid (the forward also with its
+                statistics at the flagship's fp32 shapes and the train shape in bf16)
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket
   8. pair_batch the same forward with pair_batch=True against pair_batch=False (cuDNN's
@@ -97,16 +103,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 4 and 4 launches of the two depth-split kernels per rank; (d) the flagship
                 fp32 train step, remat on, on depth=2: seconds and peak memory per rank
 The kernel phase also holds the depth-split entry points (the partial forward, the
-stats-fed backward) against their plain versions at the flagship's depth=2 slices
-(SPLIT_SHAPES), fp32 and bf16, an all-+inf slice and a misaligned one, and timing times
-them beside their bounds.
+stats-fed backward: the gradient kernel at the slice's offset) against their plain
+versions at the flagship's depth=2 slices (SPLIT_SHAPES), fp32 and bf16, a slice whose D
+the gradient kernel's chunk does not divide, the depth phase's train slice (B = 2) in both
+dtypes, an all-+inf slice and a misaligned one, and timing times them beside their bounds.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only native fusion eval train parallel quant depth` runs just
-those phases after device and build (depth with the depth-split kernels' checks and times):
-a short run while working on one of them, which exits 1 and prints no kernels line and no
-ok line.
+nothing of JAX or of atvsnet_tpu. `--only kernels native fusion eval train parallel quant
+depth` runs just those phases after device and build (kernels: every kernel check and
+kernel timing above, no model; depth with the depth-split kernels' checks and times): a
+short run while working on one of them, which exits 1 and prints no kernels line and no ok
+line. `--only kernels --baseline DIR` also times DIR's kernels (another checkout, say the
+parent commit unpacked under build/) in turns with this tree's on the same inputs.
 """
 
 from __future__ import annotations
@@ -236,9 +245,9 @@ EVAL_MAX_MAE, EVAL_MIN_INLIER3, EVAL_MIN_POINTS = 0.01, 0.90, 100_000
 # of the same pixel) and their colours agree to +-1.
 FUSION_MAX_UNMATCHED, FUSION_COLOUR_TOL = 1e-3, 1
 FUSION_FLOP_PER_CHECK = 60  # per (reference pixel, view): project, 4-corner blend of 4 channels, test
-# The backward kernel: per cost element two exponent arguments, an exponent in each pass,
-# the sum, the sweep difference and two products; it reads the cost and writes its gradient.
-BWD_FLOPS_PER_ELEMENT = 8
+# The gradient kernel: per cost element the exponent's argument, the exponent, the sweep
+# difference and two products, in one pass; it reads the cost and writes its gradient.
+BWD_FLOPS_PER_ELEMENT = 6
 # Bounds of the backward kernel, stated before its first run on a card. Against the
 # closed-form plain backward: fp32 rtol 1e-5 (ex2.approx and the order of two products),
 # bf16 one bf16 ulp (both round the same fp32 formula); atol 1e-6 of the largest gradient
@@ -304,9 +313,7 @@ ONE_PROCESS_REMAT_STEP = {"seconds": 7.05, "peak_bytes": 31_742_019_584}
 # four fit whatever workspace cuDNN would take (it tries smaller algorithms instead)
 SHARED4_MEMORY_FRACTION = 0.23
 # the depth-split kernels: per cost element of the partial forward the forward's work;
-# per element of the stats-fed backward two exponent arguments, the exponent, the sweep
-# difference and two products
-SPLIT_BWD_FLOPS_PER_ELEMENT = 6
+# the stats-fed backward is the gradient kernel (BWD_FLOPS_PER_ELEMENT)
 # the shapes of the flagship's depth=2 split (native slice and row tile), held against the
 # plain versions; the slice at offset 64 is the second rank's
 SPLIT_SHAPES = ((1, 64, 120, 224), (1, 64, 120, 896))
@@ -356,11 +363,12 @@ def card_kind(name: str) -> str:
     return "pcie" if "pcie" in name.lower() else "sxm"
 
 
-def bound_ms(shape, elem_bytes: int, kind: str):
-    """Least time for one soft-argmin call: bytes (cost read once, depth written once,
-    start/interval read once) over HBM bandwidth vs operations over the fp32 peak."""
+def bound_ms(shape, elem_bytes: int, kind: str, stats: bool = False):
+    """Least time for one soft-argmin call: bytes (cost read once, depth written once, and
+    with `stats` the (2, B, h, w) fp32 statistics written once, start/interval read once)
+    over HBM bandwidth vs operations over the fp32 peak."""
     B, D, h, w = shape
-    nbytes = B * D * h * w * elem_bytes + B * h * w * 4 + 2 * B * 4
+    nbytes = B * D * h * w * elem_bytes + (3 if stats else 1) * B * h * w * 4 + 2 * B * 4
     t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
     t_ops = B * D * h * w * FLOPS_PER_ELEMENT / FP32_FLOP_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -368,10 +376,11 @@ def bound_ms(shape, elem_bytes: int, kind: str):
 
 def backward_bound_ms(shape, elem_bytes: int, kind: str):
     """Least time for one backward call: the cost read once and its gradient written once,
-    the depth and incoming gradient maps and start/interval read once, over HBM
-    bandwidth, vs BWD_FLOPS_PER_ELEMENT operations per element over the fp32 peak."""
+    the statistics (2, B, h, w), the depth and incoming gradient maps and start/interval
+    read once, over HBM bandwidth, vs BWD_FLOPS_PER_ELEMENT operations per element over
+    the fp32 peak."""
     B, D, h, w = shape
-    nbytes = 2 * B * D * h * w * elem_bytes + 2 * B * h * w * 4 + 2 * B * 4
+    nbytes = 2 * B * D * h * w * elem_bytes + 4 * B * h * w * 4 + 2 * B * 4
     t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
     t_ops = B * D * h * w * BWD_FLOPS_PER_ELEMENT / FP32_FLOP_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -482,9 +491,11 @@ def phase_kernel() -> float:
             cost = with_inf_planes(cost, transform)
         before = dict(S.softargmin_cuda.path_launches)
         got = S.softargmin_cuda(cost, ds, di)
+        with_stats, stats = S.softargmin_cuda(cost, ds, di, with_stats=True)
         ref = S.softargmin_torch(cost, ds, di)
+        ref_stats = S.softargmin_partial_torch(cost, ds, di, 0)[:2]
         torch.cuda.synchronize()
-        took = [p for p in S.PATHS if S.softargmin_cuda.path_launches[p] == before[p] + 1]
+        took = [p for p in S.PATHS if S.softargmin_cuda.path_launches[p] == before[p] + 2]
         nan_ref, nan_got = torch.isnan(ref), torch.isnan(got)
         err = torch.where(nan_ref, torch.zeros_like(ref), (got - ref).abs())
         ok = (took == [path] and torch.equal(nan_ref, nan_got)
@@ -493,21 +504,35 @@ def phase_kernel() -> float:
         ok = ok and int(nan_ref.sum()) == (shape[0] if transform == "all" else 0)
         if transform == "peaked":
             ok = ok and bool(((got - 2.5).abs() <= 1e-4).all())
+        # the statistics: the depth unchanged to the bit, the max to the bit, the sum at RTOL
+        same_depth = (torch.equal(torch.isnan(with_stats), nan_got)
+                      and torch.equal(with_stats.nan_to_num(), got.nan_to_num()))
+        max_exact = torch.equal(stats[0], ref_stats[0])
+        sum_ok, sum_err = _within(stats[1], ref_stats[1], RTOL, 0.0)
+        ok = ok and same_depth and max_exact and sum_ok
         emit(phase="kernel", case=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
              path=took, nan_pixels=int(nan_got.sum()), max_abs_err=float(err.max()),
-             max_rel_err=float((err / ref.abs())[~nan_ref].max()), ok=ok)
+             max_rel_err=float((err / ref.abs())[~nan_ref].max()),
+             stats={"depth_unchanged": same_depth, "max_exact": max_exact,
+                    "sum_max_abs_err": sum_err}, ok=ok)
         if not ok:
             raise AssertionError(f"soft-argmin kernel case '{name}' at {shape}: wrong path, NaN "
-                                 "pattern or values against the plain version")
+                                 "pattern, values or statistics against the plain version")
         worst = max(worst, float(err.max()))
     return worst
 
 
 def backward_cases():
-    """(name, shape, dtype, path expected, transform of the seeded inputs or None)."""
+    """(name, shape, dtype, path expected, transform of the seeded inputs or None). The
+    cases named "D % chunk" have a D that the gradient kernel's chunk of planes does not
+    divide (checked in phase_kernel_backward)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("train", TRAIN_SHAPE, f32, "aligned", None),
              ("train bf16", TRAIN_SHAPE, bf16, "aligned", None),
+             ("D % chunk", (1, 130, 120, 224), f32, "aligned", None),
+             ("D % chunk bf16", (1, 130, 120, 224), bf16, "aligned", None),
+             ("B=2", (2, 128, 120, 224), f32, "aligned", None),
+             ("B=2 train bf16", (2,) + TRAIN_SHAPE[1:], bf16, "aligned", None),
              ("main native", (1, 128, 120, 224), f32, "aligned", None),
              ("main native bf16", (1, 128, 120, 224), bf16, "aligned", None),
              ("main tile", (1, 128, 120, 896), f32, "aligned", None),
@@ -525,16 +550,16 @@ def backward_cases():
 
 
 def backward_inputs(shape, dtype, seed, transform=None):
-    """The kernel inputs of `kernel_inputs`, the plain forward's depth and a seeded
-    incoming gradient."""
+    """The kernel inputs of `kernel_inputs`, the plain forward's statistics and depth, and
+    a seeded incoming gradient: the arguments of softargmin_backward_cuda."""
     cost, ds, di = kernel_inputs(shape, dtype, seed)
     if transform == "misaligned":
         cost = misaligned_view(cost)
     elif transform is not None:
         cost = with_inf_planes(cost, transform)
-    depth = S.softargmin_torch(cost, ds, di)
+    depth, stats = S.softargmin_torch(cost, ds, di, with_stats=True)
     g = torch.randn(depth.shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
-    return cost, ds, di, depth, g
+    return cost, ds, di, stats, depth, g
 
 
 def _within(got, want, rtol, atol):
@@ -547,13 +572,17 @@ def _within(got, want, rtol, atol):
 
 
 def phase_kernel_backward() -> float:
-    """The backward kernel against the closed-form plain backward and against autograd of
-    the plain forward, on the same inputs; returns the largest difference to the former."""
+    """The gradient kernel through softargmin_backward_cuda, fed the plain forward's
+    statistics, against the closed-form plain backward and against autograd of the plain
+    forward, on the same inputs; returns the largest difference to the former."""
     worst = 0.0
     for i, (name, shape, dtype, path, transform) in enumerate(backward_cases()):
-        cost, ds, di, depth, g = backward_inputs(shape, dtype, 200 + i, transform)
+        cost, ds, di, stats, depth, g = backward_inputs(shape, dtype, 200 + i, transform)
+        grid = S.gradient_grid(shape, dtype, path)
+        if name.startswith("D % chunk") and shape[1] % grid[2] == 0:
+            raise AssertionError(f"backward case '{name}': chunks of {grid[2]} planes divide D")
         before = dict(S.softargmin_backward_cuda.path_launches)
-        got = S.softargmin_backward_cuda(cost, ds, di, depth, g).float()
+        got = S.softargmin_backward_cuda(cost, ds, di, stats, depth, g).float()
         ref = S.softargmin_backward_torch(cost, ds, di, depth, g).float()
         leaf = cost.detach().clone().requires_grad_(True)
         S.softargmin_torch(leaf, ds, di).backward(g)
@@ -568,7 +597,8 @@ def phase_kernel_backward() -> float:
         ok = (took == [path] and plain_ok and auto_ok
               and nan == (shape[0] * shape[1] if transform == "all" else 0))
         emit(phase="kernel", direction="backward", case=name, shape=list(shape),
-             dtype=str(dtype).split(".")[-1], path=took, nan_elements=nan, max_abs_err=err,
+             dtype=str(dtype).split(".")[-1], path=took, grid=list(grid), nan_elements=nan,
+             max_abs_err=err,
              max_abs_err_vs_autograd=err_auto, gradient_scale=scale, ok=ok)
         if not ok:
             raise AssertionError(f"soft-argmin backward case '{name}' at {shape}: wrong path, NaN "
@@ -659,16 +689,28 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
              maps_per_s=1.0 / sec, peak_memory_bytes=torch.cuda.max_memory_allocated())
     torch.backends.cudnn.deterministic = False
     phase_activation(model, images, cams, cfg)
+    return phase_timing_kernel(kind)
 
+
+def phase_timing_kernel(kind):
+    """Device times of the forward kernel beside the plain version's, the HBM bound and an
+    empty launch of the same grid: the flagship forward's two calls, the pair_batch
+    forward's stacked one and the eval path's call (8 views at 512x640), then what no
+    forward here runs: bf16, and the scalar path at the native shape (through a pointer
+    that is not 16-byte aligned). With the statistics that autograd asks for ("stats":
+    true, 8 bytes per pixel more in the bound) at the flagship's fp32 shapes and the train
+    CLI's bf16 shape, each beside its line without. Returns the kernel, plain and bound ms
+    of one flagship forward (MAIN_SHAPES) and what bounds them."""
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = "bytes"
     f32, bf16 = torch.float32, torch.bfloat16
-    # the flagship forward's two calls, the pair_batch forward's stacked one and the eval
-    # path's call (8 views at 512x640), then what no forward here runs: bf16, and the scalar path at the native shape (through a pointer that is not 16-byte aligned)
-    for shape, dtype, path in [((1, 128, 120, 224), f32, "aligned"), ((1, 128, 120, 896), f32, "aligned"),
-                               ((2, 128, 120, 224), f32, "aligned"), ((1, 128, 128, 160), f32, "aligned"),
-                               ((1, 128, 120, 224), bf16, "aligned"),
-                               ((1, 128, 120, 224), f32, "scalar"), ((1, 128, 120, 224), bf16, "scalar")]:
+    for shape, dtype, path, stats in [
+            ((1, 128, 120, 224), f32, "aligned", False), ((1, 128, 120, 224), f32, "aligned", True),
+            ((1, 128, 120, 896), f32, "aligned", False), ((1, 128, 120, 896), f32, "aligned", True),
+            ((2, 128, 120, 224), f32, "aligned", False), ((1, 128, 128, 160), f32, "aligned", False),
+            ((1, 128, 120, 224), bf16, "aligned", False),
+            (TRAIN_SHAPE, bf16, "aligned", False), (TRAIN_SHAPE, bf16, "aligned", True),
+            ((1, 128, 120, 224), f32, "scalar", False), ((1, 128, 120, 224), bf16, "scalar", False)]:
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
         bufs = [kernel_inputs(shape, dtype, seed=100 + i) for i in range(nbuf)]
@@ -676,17 +718,17 @@ def phase_timing(model, images, cams, cfg, kind, iters=5):
             bufs = [(misaligned_view(c), ds, di) for c, ds, di in bufs]
         if {S.kernel_path(c.data_ptr(), shape[2] * shape[3], dtype) for c, _, _ in bufs} != {path}:
             raise AssertionError(f"timing buffers at {shape} are not all on the {path} path")
-        k_ms = device_ms(S.softargmin_cuda, bufs, 50)
-        p_ms = device_ms(S.softargmin_torch, bufs, 20)
+        k_ms = device_ms(lambda c, ds, di: S.softargmin_cuda(c, ds, di, with_stats=stats), bufs, 50)
+        p_ms = device_ms(lambda c, ds, di: S.softargmin_torch(c, ds, di, with_stats=stats), bufs, 20)
         e_ms = device_ms(lambda c, ds, di: S.empty_launch(c), bufs, 50)
-        b_ms, b_by = bound_ms(shape, elem, kind)
+        b_ms, b_by = bound_ms(shape, elem, kind, stats)
         emit(phase="timing", what="softargmin", shape=list(shape), dtype=str(dtype).split(".")[-1],
-             path=path, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+             path=path, stats=stats, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
              empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms,
              kernel_gb_per_s=(math.prod(shape) * elem) / (k_ms * 1e-3) / 1e9,
              library_ms=None, library="none: no single PyTorch call computes soft-argmin")
         del bufs
-        if dtype == f32 and path == "aligned" and shape in MAIN_SHAPES:
+        if dtype == f32 and path == "aligned" and not stats and shape in MAIN_SHAPES:
             n = MAIN_SHAPES[shape]
             totals["ms"] += n * k_ms
             totals["plain_ms"] += n * p_ms
@@ -720,10 +762,11 @@ def phase_activation(model, images, cams, cfg):
 
 
 def phase_timing_backward(kind):
-    """Device times of the backward kernel beside the plain backward's, its bound and an
-    empty launch of its grid: at the train shape (the CLI's bf16 and fp32), the flagship's
-    shapes, and the scalar path at the native shape. Returns the kernel, plain and bound
-    milliseconds of one CLI train step (its launches at the train shape, bf16)."""
+    """Device times of the gradient kernel through softargmin_backward_cuda beside the
+    closed-form plain backward's, its bound and an empty launch of its grid: at the train
+    shape (the CLI's bf16 and fp32), the flagship's shapes, and the scalar path at the
+    native shape. Returns the kernel, plain and bound milliseconds of one CLI train step
+    (its launches at the train shape, bf16)."""
     f32, bf16 = torch.float32, torch.bfloat16
     per_step = TRAIN_LAUNCHES[(False, 0.0)][1]
     totals, bound_by = {}, "bytes"
@@ -737,11 +780,17 @@ def phase_timing_backward(kind):
         if {S.kernel_path(b[0].data_ptr(), shape[2] * shape[3], dtype) for b in bufs} != {path}:
             raise AssertionError(f"backward timing buffers at {shape} are not all on the {path} path")
         k_ms = device_ms(S.softargmin_backward_cuda, bufs, 50)
-        p_ms = device_ms(S.softargmin_backward_torch, bufs, 20)
-        e_ms = device_ms(lambda c, *_: S.empty_launch(c), bufs, 50)
+        p_ms = device_ms(lambda c, ds, di, _, d, g: S.softargmin_backward_torch(c, ds, di, d, g),
+                         bufs, 20)
+        # what the card reaches on the same bytes: a device copy of the cost (read once,
+        # written once), beside the kernel and its bound
+        copy_ms = device_ms(lambda c, *_: torch.empty_like(c).copy_(c), bufs, 50)
+        e_ms = device_ms(lambda c, *_: S.empty_launch(c, backward=True), bufs, 50)
         b_ms, b_by = backward_bound_ms(shape, elem, kind)
         emit(phase="timing", what="softargmin_backward", shape=list(shape),
-             dtype=str(dtype).split(".")[-1], path=path, kernel_ms=k_ms, plain_ms=p_ms,
+             dtype=str(dtype).split(".")[-1], path=path,
+             grid=list(S.gradient_grid(shape, dtype, path)), kernel_ms=k_ms, plain_ms=p_ms,
+             copy_ms=copy_ms,
              bound_ms=b_ms, bound_by=b_by, empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms,
              kernel_gb_per_s=2 * math.prod(shape) * elem / (k_ms * 1e-3) / 1e9, buffers=nbuf,
              library_ms=None, library="none: no single PyTorch call computes this gradient")
@@ -1914,7 +1963,7 @@ def split_bound_ms(shape, elem_bytes: int, kind: str, backward: bool):
     B, D, h, w = shape
     if backward:
         nbytes = 2 * B * D * h * w * elem_bytes + 4 * B * h * w * 4 + 2 * B * 4
-        flops = SPLIT_BWD_FLOPS_PER_ELEMENT
+        flops = BWD_FLOPS_PER_ELEMENT
     else:
         nbytes = B * D * h * w * elem_bytes + 3 * B * h * w * 4 + 2 * B * 4
         flops = FLOPS_PER_ELEMENT
@@ -1946,10 +1995,16 @@ def split_inputs(shape, dtype, seed, transform=None):
 
 
 def split_kernel_cases():
+    """(name, slice shape, dtype, path expected, transform). "D % chunk": a slice whose D
+    the gradient kernel's chunk of planes does not divide; the train shape is the depth
+    phase's (DEPTH_TRAIN_SHAPE, B = 2)."""
     f32, bf16 = torch.float32, torch.bfloat16
     native, tile = SPLIT_SHAPES
     return [("native slice", native, f32, "aligned", None), ("native slice bf16", native, bf16, "aligned", None),
             ("tile slice", tile, f32, "aligned", None), ("tile slice bf16", tile, bf16, "aligned", None),
+            ("D % chunk slice", (1, 65, 120, 224), f32, "aligned", None),
+            ("train slice, B=2", DEPTH_TRAIN_SHAPE, f32, "aligned", None),
+            ("train slice, B=2 bf16", DEPTH_TRAIN_SHAPE, bf16, "aligned", None),
             ("all +inf slice", native, f32, "aligned", "inf"),
             ("misaligned slice", native, f32, "scalar", "misaligned")]
 
@@ -1963,6 +2018,9 @@ def phase_kernel_split() -> tuple[float, float]:
     worst = {"partial": 0.0, "backward_stats": 0.0}
     for i, (name, shape, dtype, path, transform) in enumerate(split_kernel_cases()):
         full, cost, ds, di, off, stats, depth, g = split_inputs(shape, dtype, 400 + i, transform)
+        grid = S.gradient_grid(shape, dtype, path)
+        if name.startswith("D % chunk") and shape[1] % grid[2] == 0:
+            raise AssertionError(f"split case '{name}': chunks of {grid[2]} planes divide D")
         before = (dict(S.softargmin_partial_cuda.path_launches),
                   dict(S.softargmin_backward_stats_cuda.path_launches))
         got = S.softargmin_partial_cuda(cost, ds, di, off)
@@ -1989,7 +2047,8 @@ def phase_kernel_split() -> tuple[float, float]:
         ok = (took == [[path], [path]] and max_ok and sums_ok and merged_ok and plain_ok
               and auto_ok and inf_ok)
         emit(phase="kernel", direction="depth split", case=name, shape=list(shape),
-             dtype=str(dtype).split(".")[-1], offset=off, path=took, max_exact=max_ok,
+             dtype=str(dtype).split(".")[-1], offset=off, path=took, grid=list(grid),
+             max_exact=max_ok,
              max_abs_err_partial=err, merged_vs_whole=merged_err, max_abs_err_backward=err_bwd,
              max_abs_err_backward_vs_autograd=err_auto, inf_slice_triple_ok=inf_ok, ok=ok)
         if not ok:
@@ -2018,20 +2077,23 @@ def phase_timing_split(kind):
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
         bufs = [split_inputs(shape, dtype, 500 + i)[1:] for i in range(nbuf)]
+        copy_ms = None
         if backward:
             k_ms = device_ms(S.softargmin_backward_stats_cuda, bufs, 50)
             p_ms = device_ms(S.softargmin_backward_stats_torch, bufs, 20)
+            copy_ms = device_ms(lambda c, *_: torch.empty_like(c).copy_(c), bufs, 50)
         else:
             bufs = [b[:4] for b in bufs]
             k_ms = device_ms(S.softargmin_partial_cuda, bufs, 50)
             p_ms = device_ms(S.softargmin_partial_torch, bufs, 20)
-        e_ms = device_ms(lambda c, *_: S.empty_launch(c), bufs, 50)
+        e_ms = device_ms(lambda c, *_: S.empty_launch(c, backward=backward), bufs, 50)
         b_ms, b_by = split_bound_ms(shape, elem, kind, backward)
         name = "backward_stats" if backward else "partial"
         emit(phase="timing", what="softargmin_" + name, shape=list(shape),
-             dtype=str(dtype).split(".")[-1], path="aligned", kernel_ms=k_ms, plain_ms=p_ms,
-             bound_ms=b_ms, bound_by=b_by, empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms,
-             buffers=nbuf, library_ms=None,
+             dtype=str(dtype).split(".")[-1], path="aligned",
+             grid=list(S.gradient_grid(shape, dtype, "aligned")) if backward else None,
+             kernel_ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms, bound_ms=b_ms, bound_by=b_by,
+             empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms, buffers=nbuf, library_ms=None,
              library="none: no single PyTorch call computes a partial soft-argmin or its gradient")
         del bufs
         n = (6 if shape == native else 0) if backward else per_forward.get(shape, 0)
@@ -2040,6 +2102,64 @@ def phase_timing_split(kind):
                 totals[name][key] += n * v
             bound_by[name] = b_by if b_by == "operations" else bound_by[name]
     return totals, bound_by
+
+
+def load_baseline(root: str):
+    """atvsnet_torch/ops/softargmin.py of another checkout (say the parent commit unpacked
+    under build/), loaded beside this one under its own name; it builds its own library
+    into that checkout's build/ directory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "baseline_softargmin", os.path.join(root, "atvsnet_torch", "ops", "softargmin.py"))
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    base.build(force=True)
+    return base
+
+
+def phase_kernel_turns(base, root: str):
+    """The kernels of this tree against those of `base` (load_baseline) on the same inputs
+    in turns (base, this, this, base): the forward without statistics at the timed shapes,
+    the whole-volume backward at the train and flagship shapes, the stats-fed backward at
+    SPLIT_SHAPES. A baseline whose softargmin_backward_cuda takes no statistics (before the
+    one gradient kernel) recomputes them; it gets the same depth and gradient."""
+    import inspect
+    base_has_stats = "stats" in inspect.signature(base.softargmin_backward_cuda).parameters
+
+    def base_backward(c, ds, di, stats, depth, g):
+        if base_has_stats:
+            return base.softargmin_backward_cuda(c, ds, di, stats, depth, g)
+        return base.softargmin_backward_cuda(c, ds, di, depth, g)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("softargmin", s_, d_) for s_, d_ in [
+        ((1, 128, 120, 224), f32), ((1, 128, 120, 896), f32), ((1, 128, 128, 160), f32),
+        ((1, 128, 120, 224), bf16), (TRAIN_SHAPE, bf16)]]
+    cases += [("softargmin_backward", s_, d_) for s_, d_ in [
+        (TRAIN_SHAPE, bf16), (TRAIN_SHAPE, f32), ((1, 128, 120, 224), f32),
+        ((1, 128, 120, 896), f32), ((1, 128, 120, 224), bf16)]]
+    cases += [("softargmin_backward_stats", s_, d_) for s_, d_ in [
+        (SPLIT_SHAPES[0], f32), (SPLIT_SHAPES[0], bf16), (SPLIT_SHAPES[1], f32)]]
+    for what, shape, dtype in cases:
+        elem = torch.tensor([], dtype=dtype).element_size()
+        nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
+        if what == "softargmin":
+            bufs = [kernel_inputs(shape, dtype, seed=600 + i) for i in range(nbuf)]
+            fns = {"base": base.softargmin_cuda, "this": S.softargmin_cuda}
+        elif what == "softargmin_backward":
+            bufs = [backward_inputs(shape, dtype, 600 + i) for i in range(nbuf)]
+            fns = {"base": base_backward, "this": S.softargmin_backward_cuda}
+        else:
+            bufs = [split_inputs(shape, dtype, 600 + i)[1:] for i in range(nbuf)]
+            fns = {"base": base.softargmin_backward_stats_cuda,
+                   "this": S.softargmin_backward_stats_cuda}
+        ms = {"base": [], "this": []}
+        for who in ("base", "this", "this", "base"):
+            ms[who].append(device_ms(fns[who], bufs, 50))
+        del bufs
+        emit(phase="timing", what=what, turns="base, this, this, base", baseline=root,
+             shape=list(shape), dtype=str(dtype).split(".")[-1], base_ms=ms["base"],
+             this_ms=ms["this"], this_over_base=sum(ms["this"]) / sum(ms["base"]))
 
 
 def depth_rank_forward(mesh, model, cfg, images, cams) -> dict:
@@ -2248,11 +2368,17 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
-                    choices=["native", "fusion", "eval", "train", "parallel", "quant", "depth"],
+                    choices=["kernels", "native", "fusion", "eval", "train", "parallel", "quant",
+                             "depth"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
+    ap.add_argument("--baseline", default=None,
+                    help="with --only kernels: the root of another checkout whose kernels are "
+                         "timed in turns with this tree's on the same inputs")
     args = ap.parse_args()
+    if args.baseline and not (args.only and "kernels" in args.only):
+        ap.error("--baseline goes with --only kernels")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     kind = card_kind(name)
@@ -2264,10 +2390,17 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
          ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln])
 
+    def kernels():
+        phase_kernel(), phase_kernel_backward(), phase_kernel_split()
+        phase_timing_kernel(kind), phase_timing_backward(kind), phase_timing_split(kind)
+        if args.baseline:
+            phase_kernel_turns(load_baseline(args.baseline), args.baseline)
+
     if args.only:
         for phase in args.only:
-            {"native": phase_native, "fusion": lambda: phase_fusion(kind), "eval": phase_eval,
-             "train": phase_train, "parallel": phase_parallel, "quant": phase_quant,
+            {"kernels": kernels, "native": phase_native, "fusion": lambda: phase_fusion(kind),
+             "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
+             "quant": phase_quant,
              "depth": lambda: (phase_kernel_split(), phase_timing_split(kind), phase_depth())
              }[phase]()
         print(smi, flush=True)
@@ -2311,27 +2444,31 @@ def main() -> int:
     # train step of the CLI (its 4 launches at the train shape)
     train_fwd, train_bwd = train_launches["forward"]["launches"], train_launches["backward"]["launches"]
     par_fwd, par_bwd = parallel_launches["forward"], parallel_launches["backward"]
+    # the two backward entry points launch one kernel, softargmin_grad_kernel
     emit(kernels=[{
-        "name": "softargmin", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
+        "name": "softargmin", "kernel": "softargmin_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/softargmin.cu",
         "replaces": "atvsnet_tpu/ops/softargmin.py:26", "launches": launches + eval_launches + train_fwd + par_fwd,
         "launches_by_run": {"forward": launches, "eval": eval_launches, "train": train_fwd,
                             "parallel": par_fwd},
         "max_abs_err": max_err, "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"], "bound_by": bound_by, "library_ms": None,
     }, {
-        "name": "softargmin_backward", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
+        "name": "softargmin_backward", "kernel": "softargmin_grad_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/softargmin.cu",
         "replaces": "atvsnet_tpu/ops/softargmin.py:141 (_fused_bwd, XLA formula)",
         "launches": train_bwd + par_bwd, "launches_by_run": {"train": train_bwd, "parallel": par_bwd},
         "max_abs_err": max_err_bwd, "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
         "bound_ms": bwd_totals["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
     }, {
-        "name": "softargmin_partial", "route": "cuda", "source": "atvsnet_torch/csrc/softargmin.cu",
+        "name": "softargmin_partial", "kernel": "softargmin_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/softargmin.cu",
         "replaces": "atvsnet_tpu/ops/softargmin.py:26 (its reduction over a D split across "
                     "the 'depth' mesh axis, atvsnet_tpu/parallel/pipeline.py:51-71)",
         "launches": depth_launches["partial"], "max_abs_err": max_err_partial,
         **split_totals["partial"], "bound_by": split_bound_by["partial"], "library_ms": None,
     }, {
-        "name": "softargmin_backward_stats", "route": "cuda",
+        "name": "softargmin_backward_stats", "kernel": "softargmin_grad_kernel", "route": "cuda",
         "source": "atvsnet_torch/csrc/softargmin.cu",
         "replaces": "atvsnet_tpu/ops/softargmin.py:141 (_fused_bwd over a D split across the "
                     "'depth' mesh axis)",

@@ -1,5 +1,6 @@
-"""CUDA-only tests of the port: the hand-written soft-argmin kernels (forward and backward)
-on the card, the forward, pair_batch, DepthEstimator and training paths that launch them,
+"""CUDA-only tests of the port: the hand-written soft-argmin kernels (the forward with and
+without its softmax statistics, the one gradient kernel behind both backward entry points,
+the depth split's partial forward) on the card, the forward, pair_batch, DepthEstimator and training paths that launch them,
 and the consistency fusion.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
@@ -207,7 +208,37 @@ def test_consistency_fusion_on_the_card(cuda, normals):
     assert abs(dense[0].shape[0] - cpu[0].shape[0]) <= 1e-3 * cpu[0].shape[0]
 
 
-# The backward kernel against the closed-form plain backward on the same inputs: fp32 at
+@pytest.mark.parametrize("shape,dtype,path", [((1, 128, 24, 32), torch.float32, "aligned"),
+                                              ((1, 32, 32, 40), torch.bfloat16, "aligned"),
+                                              ((2, 16, 7, 33), torch.float32, "scalar"),
+                                              ((1, 32, 5, 7), torch.bfloat16, "scalar")])
+@pytest.mark.parametrize("which", [None, "slice", "all"])
+def test_forward_stats_match_plain(cuda, shape, dtype, path, which):
+    """The forward kernel asked for its softmax statistics: the same depth, to the bit, as
+    without them; the max of -cost to the bit and the sum at rtol 1e-5 against
+    softargmin_partial_torch at offset 0 (an all-+inf pixel: -inf and 0)."""
+    cost, ds, di = _inputs(shape, dtype, cuda)
+    B, D = shape[:2]
+    if which == "slice":
+        cost.view(B, D, -1)[:, D // 2:, ::5] = torch.inf
+    elif which == "all":
+        cost.view(B, D, -1)[:, :, 0] = torch.inf
+    depth = _launch_and_compare(cost, ds, di, path)
+    by_path = dict(S.softargmin_cuda.path_launches)
+    got, stats = S.softargmin_cuda(cost, ds, di, with_stats=True)
+    torch.cuda.synchronize()
+    by_path[path] += 1
+    assert S.softargmin_cuda.path_launches == by_path
+    torch.testing.assert_close(got, depth, rtol=0, atol=0, equal_nan=True)
+    ref = S.softargmin_partial_torch(cost, ds, di, 0)
+    assert stats.shape == (2, B, *shape[2:]) and torch.equal(stats[0], ref[0])
+    torch.testing.assert_close(stats[1], ref[1], rtol=RTOL, atol=0)
+    if which == "all":
+        assert bool(torch.isneginf(stats[0].view(B, -1)[:, 0]).all())
+        assert bool((stats[1].view(B, -1)[:, 0] == 0).all())
+
+
+# The gradient kernel against the closed-form plain backward on the same inputs: fp32 at
 # rtol 1e-5 (ex2.approx and the order of two products), plus an atol of 1e-6 of the largest
 # gradient for values that the kernel's flush-to-zero exponent makes 0; bf16 within one
 # bf16 ulp (both round the same fp32 formula, which may straddle a rounding boundary).
@@ -215,6 +246,7 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 
 
 def _backward_inputs(shape, dtype, device, transform=None):
+    """The kernel inputs, the plain forward's depth and statistics, a seeded gradient."""
     cost, ds, di = _inputs(shape, dtype, device)
     if transform is not None:
         B, D = shape[:2]
@@ -223,15 +255,15 @@ def _backward_inputs(shape, dtype, device, transform=None):
             flat[:, :8, ::5] = torch.inf
         elif transform == "all":
             flat[:, :, 0] = torch.inf
-    depth = S.softargmin_torch(cost, ds, di)
+    depth, stats = S.softargmin_torch(cost, ds, di, with_stats=True)
     g = torch.Generator(device=device).manual_seed(1)
     grad = torch.randn(depth.shape, device=device, generator=g)
-    return cost, ds, di, depth, grad
+    return cost, ds, di, stats, depth, grad
 
 
-def _backward_and_compare(cost, ds, di, depth, grad, path):
+def _backward_and_compare(cost, ds, di, stats, depth, grad, path):
     before, by_path = S.softargmin_backward_cuda.launches, dict(S.softargmin_backward_cuda.path_launches)
-    got = S.softargmin_backward_cuda(cost, ds, di, depth, grad)
+    got = S.softargmin_backward_cuda(cost, ds, di, stats, depth, grad)
     torch.cuda.synchronize()
     assert S.softargmin_backward_cuda.launches == before + 1
     by_path[path] += 1
@@ -257,6 +289,39 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, path):
     _backward_and_compare(*_backward_inputs(shape, dtype, cuda), path)
 
 
+@pytest.mark.parametrize("shape,dtype", [((1, 130, 120, 224), torch.float32),
+                                         ((1, 130, 120, 224), torch.bfloat16),
+                                         ((2, 128, 120, 224), torch.float32),
+                                         ((2, 32, 32, 40), torch.bfloat16),
+                                         ((1, 32, 32, 40), torch.float32),
+                                         ((1, 32, 32, 40), torch.bfloat16)])
+def test_gradient_grid_cases(cuda, shape, dtype):
+    """The gradient kernel's 2-D grid at D not a multiple of its chunk of planes, at B = 2
+    and at the train shape (more than 20 blocks, as the two-pass kernel had): against the
+    closed form."""
+    tiles, chunks, planes = S.gradient_grid(shape, dtype, "aligned")
+    assert chunks == -(-shape[1] // planes) and chunks <= shape[1]
+    if shape[1] == 130:
+        assert shape[1] % planes != 0
+    if shape[2:] == (32, 40) and shape[0] == 1:
+        assert tiles * chunks > 20
+    _backward_and_compare(*_backward_inputs(shape, dtype, cuda), "aligned")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whole_and_split_entries_give_the_same_gradient(cuda, dtype):
+    """Both backward entry points launch the one gradient kernel: on the same statistics
+    the whole-volume entry and the split entry at offset 0 agree to the bit, and the split
+    entry on a slice at its offset gives that slice of the whole volume's gradient."""
+    cost, ds, di, stats, depth, grad = _backward_inputs((1, 128, 24, 32), dtype, cuda)
+    whole = S.softargmin_backward_cuda(cost, ds, di, stats, depth, grad)
+    at0 = S.softargmin_backward_stats_cuda(cost, ds, di, 0, stats, depth, grad)
+    part = S.softargmin_backward_stats_cuda(cost[:, 48:].contiguous(), ds, di, 48, stats, depth,
+                                            grad)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, at0) and torch.equal(whole[:, 48:], part)
+
+
 @pytest.mark.parametrize("transform,path", [("first8", "aligned"), ("all", "aligned")])
 def test_backward_inf_planes(cuda, transform, path):
     """+inf planes get gradient 0; a pixel whose planes are all +inf gets NaN in every
@@ -272,21 +337,23 @@ def test_backward_inf_planes(cuda, transform, path):
 
 
 def test_backward_misaligned_pointer_takes_the_scalar_kernel(cuda):
-    cost, ds, di, depth, grad = _backward_inputs((1, 128, 24, 32), torch.float32, cuda)
+    cost, ds, di, stats, depth, grad = _backward_inputs((1, 128, 24, 32), torch.float32, cuda)
     flat = torch.empty(cost.numel() + 1, device=cuda)
     view = flat[1:].view(cost.shape)
     view.copy_(cost)
-    got = _backward_and_compare(view, ds, di, depth, grad, "scalar")
-    torch.testing.assert_close(got, _backward_and_compare(cost, ds, di, depth, grad, "aligned"),
-                               rtol=1e-5, atol=1e-9)
+    got = _backward_and_compare(view, ds, di, stats, depth, grad, "scalar")
+    torch.testing.assert_close(got, _backward_and_compare(cost, ds, di, stats, depth, grad,
+                                                          "aligned"), rtol=1e-5, atol=1e-9)
 
 
 def test_backward_rejects_what_it_cannot_take(cuda):
-    cost, ds, di, depth, grad = _backward_inputs((1, 8, 4, 6), torch.float32, cuda)
+    cost, ds, di, stats, depth, grad = _backward_inputs((1, 8, 4, 6), torch.float32, cuda)
     with pytest.raises(ValueError, match="grad"):
-        S.softargmin_backward_cuda(cost, ds, di, depth, grad.double())
+        S.softargmin_backward_cuda(cost, ds, di, stats, depth, grad.double())
     with pytest.raises(ValueError, match="depth"):
-        S.softargmin_backward_cuda(cost, ds, di, depth.cpu(), grad)
+        S.softargmin_backward_cuda(cost, ds, di, stats, depth.cpu(), grad)
+    with pytest.raises(ValueError, match="stats"):
+        S.softargmin_backward_cuda(cost, ds, di, stats[:1], depth, grad)
 
 
 def test_autograd_routes_through_both_kernels(cuda):
@@ -294,7 +361,7 @@ def test_autograd_routes_through_both_kernels(cuda):
     backward launches the backward kernel; under no_grad it launches the forward alone.
     The gradient is autograd's of the plain version (atol 1e-5 of max|g| * max|sweep|:
     that formula subtracts two values of that size)."""
-    cost, ds, di, _, grad = _backward_inputs((1, 32, 32, 40), torch.float32, cuda)
+    cost, ds, di, _, _, grad = _backward_inputs((1, 32, 32, 40), torch.float32, cuda)
     S.reset_launch_counts()
     with torch.no_grad():
         S.softargmin(cost, 32, ds, di)

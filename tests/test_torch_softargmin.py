@@ -185,3 +185,39 @@ def test_path_counters_do_not_move_without_a_launch():
     with pytest.raises(ValueError, match="CUDA"):
         S.softargmin_cuda(torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
     assert S.softargmin_cuda.path_launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", [None, "leading8", "slice", "all_but_one"])
+def test_plain_forward_with_stats(which, dtype):
+    """The plain forward with its softmax statistics, which the gradient kernel is fed:
+    the depth is JAX's (interpret mode) and the same, to the bit, as without statistics;
+    the statistics are rows 0-1 of softargmin_partial_torch at offset 0, the max of -cost
+    to the bit and the sum of exp(-cost - max) at rtol 1e-5 against numpy."""
+    cost, ds, di = _inputs(2, 32, 3, 8, seed=30)
+    if which is not None:
+        cost = _with_inf(cost, which)
+    c = torch.from_numpy(cost).to(dtype)
+    args = (c, torch.from_numpy(ds), torch.from_numpy(di))
+    depth, stats = S.softargmin_torch(*args, with_stats=True)
+    ref = np.asarray(jsoftargmin(jnp.asarray(c.float().numpy()).astype(jnp.dtype(str(dtype)[6:])),
+                                 32, jnp.asarray(ds), jnp.asarray(di), interpret=True))
+    np.testing.assert_allclose(depth.numpy(), ref, rtol=RTOL, atol=ATOL)
+    assert torch.equal(depth, S.softargmin_torch(*args))
+    assert stats.shape == (2, 2, 3, 8) and stats.dtype == torch.float32
+    assert torch.equal(stats, S.softargmin_partial_torch(*args, offset=0)[:2])
+    v = -c.float().numpy()
+    m = v.max(axis=1)
+    np.testing.assert_array_equal(stats[0].numpy(), m)
+    np.testing.assert_allclose(stats[1].numpy(), np.exp(v - m[:, None]).sum(axis=1), rtol=1e-5)
+
+
+def test_plain_forward_stats_of_an_all_inf_pixel():
+    """A pixel whose planes are all +inf: max -inf, sum 0 (taken against 0), depth NaN."""
+    cost, ds, di = _inputs(1, 16, 2, 4, seed=31)
+    cost[:, :, 1, 2] = np.inf
+    depth, stats = S.softargmin_torch(torch.from_numpy(cost), torch.from_numpy(ds),
+                                      torch.from_numpy(di), with_stats=True)
+    assert bool(torch.isnan(depth[0, 1, 2]).all()) and int(torch.isnan(depth).sum()) == 1
+    assert float(stats[0, 0, 1, 2]) == -np.inf and float(stats[1, 0, 1, 2]) == 0.0
+    assert bool(torch.isfinite(stats[:, 0, 0]).all())

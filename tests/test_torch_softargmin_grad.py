@@ -2,10 +2,14 @@
 
 The JAX backward is jax.vjp of its XLA formula (`_softargmin_xla`, which `_fused_bwd`
 differentiates). On the same seeded volumes, sweeps and incoming gradients:
-  * SoftArgminFunction's wiring (what it saves, the dtypes, no gradient for the sweep),
-    with the two kernel launchers stood in for by their plain versions: the Function
-    itself launches the kernels only and raises for a CPU tensor;
-  * softargmin_backward_torch, the closed form, on the JAX forward's own depth;
+  * SoftArgminFunction's wiring (what it saves: the forward's softmax statistics beside
+    the depth; the dtypes; no gradient for the sweep), with the two kernel launchers stood
+    in for by their plain versions: the forward by softargmin_torch with its statistics,
+    the backward by the stats-fed softargmin_backward_stats_torch at offset 0, as the one
+    gradient kernel serves both; the Function itself launches the kernels only and raises
+    for a CPU tensor;
+  * softargmin_backward_torch, the closed form, on the JAX forward's own depth, and the
+    stats-fed plain backward at offset 0 on the plain forward's depth and statistics;
   * autograd of softargmin_split_torch, the mirror of the kernel's arithmetic.
 Volumes: random, peaked (one plane 60 below the rest), and with planes of +inf cost
 (probability and gradient 0 there; a pixel whose planes are all +inf is NaN in both).
@@ -62,12 +66,17 @@ def _torch(cost, start, interval, dtype):
     return t, torch.from_numpy(start), torch.from_numpy(interval)
 
 
+def _stats_fed_backward(cost, start, interval, stats, depth, grad):
+    """The plain version of softargmin_backward_cuda: the stats-fed backward at offset 0."""
+    return S.softargmin_backward_stats_torch(cost, start, interval, 0, stats, depth, grad)
+
+
 @pytest.fixture
 def plain_launchers(monkeypatch):
     """The kernel launchers replaced by their plain versions, so that SoftArgminFunction
     runs on CPU tensors."""
     monkeypatch.setattr(S, "softargmin_cuda", S.softargmin_torch)
-    monkeypatch.setattr(S, "softargmin_backward_cuda", S.softargmin_backward_torch)
+    monkeypatch.setattr(S, "softargmin_backward_cuda", _stats_fed_backward)
 
 
 def _compare(got, ref, g, sweep_max, dtype):
@@ -107,6 +116,51 @@ def test_closed_form_matches_jax_vjp(kind, dtype):
     _compare(got.float().numpy(), ref, g, sweep_max, dtype)
 
 
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_stats_fed_backward_at_offset_0_matches_jax_vjp(kind, dtype):
+    """What the gradient kernel computes for the whole volume: the stats-fed backward at
+    offset 0 from the plain forward's depth and statistics, against jax.vjp."""
+    cost, start, interval, g = _volume(kind, dtype, seed=9)
+    _, ref, sweep_max = _jax_grad(cost, start, interval, g, dtype)
+    c, s, i = _torch(cost, start, interval, dtype)
+    depth, stats = S.softargmin_torch(c, s, i, with_stats=True)
+    got = S.softargmin_backward_stats_torch(c, s, i, 0, stats, depth, torch.from_numpy(g))
+    assert got.dtype == c.dtype and got.shape == c.shape
+    _compare(got.float().numpy(), ref, g, sweep_max, dtype)
+
+
+@pytest.mark.parametrize("kind", ["random", "inf"])
+def test_function_saves_and_uses_the_forward_stats(monkeypatch, kind):
+    """SoftArgminFunction's forward asks its launcher for the statistics, saves them, and
+    its backward hands the same tensors (the saved statistics and depth) to the gradient
+    launcher; the statistics are rows 0-1 of softargmin_partial_torch at offset 0."""
+    seen = {}
+
+    def forward(cost, start, interval, with_stats=False):
+        seen["with_stats"] = with_stats
+        seen["forward"] = S.softargmin_torch(cost, start, interval, with_stats=with_stats)
+        return seen["forward"]
+
+    def backward(cost, start, interval, stats, depth, grad):
+        seen["backward"] = (stats, depth)
+        return _stats_fed_backward(cost, start, interval, stats, depth, grad)
+
+    monkeypatch.setattr(S, "softargmin_cuda", forward)
+    monkeypatch.setattr(S, "softargmin_backward_cuda", backward)
+    cost, start, interval, g = _volume(kind, "float32", seed=10)
+    c, s, i = _torch(cost, start, interval, "float32")
+    leaf = c.clone().requires_grad_(True)
+    S.SoftArgminFunction.apply(leaf, s, i).backward(torch.from_numpy(g))
+    assert seen["with_stats"] is True
+    depth, stats = seen["forward"]
+    assert seen["backward"][0] is stats
+    torch.testing.assert_close(seen["backward"][1], depth, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(stats, S.softargmin_partial_torch(c, s, i, 0)[:2])
+    ref = S.softargmin_backward_torch(c, s, i, depth.detach(), torch.from_numpy(g))
+    sweep_max = float(S.sweep(c.shape[1], s, i).abs().max())
+    _compare(leaf.grad.numpy(), ref.numpy(), g, sweep_max, "float32")
+
+
 @pytest.mark.parametrize("kind", ["random", "peaked", "inf"])
 @pytest.mark.parametrize("slices", [2, 8, 16])
 def test_split_mirror_autograd_matches_jax_vjp(kind, slices):
@@ -119,8 +173,9 @@ def test_split_mirror_autograd_matches_jax_vjp(kind, slices):
 
 
 def test_gradcheck_float64(plain_launchers):
-    """The plain forward's autograd and the Function's closed-form backward (through the
-    plain launchers), in float64, against finite differences."""
+    """The plain forward's autograd and the Function's stats-fed backward (through the
+    plain launchers: the forward's statistics, offset 0), in float64, against finite
+    differences."""
     rng = np.random.RandomState(3)
     cost = torch.from_numpy(rng.randn(2, 7, 3, 4) * 2).requires_grad_(True)
     start = torch.tensor([0.5, 0.8], dtype=torch.float64)
@@ -147,8 +202,9 @@ def test_dispatch_under_grad_and_no_grad():
         S.SoftArgminFunction.apply(leaf, s, i)
     with pytest.raises(ValueError, match="cost only"):
         S.SoftArgminFunction.apply(leaf, s.clone().requires_grad_(True), i)
+    _, stats = S.softargmin_torch(c, s, i, with_stats=True)
     with pytest.raises(ValueError, match="CUDA"):
-        S.softargmin_backward_cuda(c, s, i, out.detach(), torch.from_numpy(g))
+        S.softargmin_backward_cuda(c, s, i, stats, out.detach(), torch.from_numpy(g))
 
 
 # ---- the soft-argmin over a split D (parallel.depth): partial forward, merge, stats-fed

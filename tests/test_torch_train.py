@@ -179,17 +179,21 @@ def test_remat_matches_no_remat():
                                                  (False, 0.5, (3, 3)), (True, 0.5, (5, 3))])
 def test_kernel_route_calls_per_loss(monkeypatch, remat, conf, expected):
     """The training forward's soft-argmins on the kernel route, counted through the two
-    kernel launchers, stood in for by their counted plain versions: per pair one stage-1
+    kernel launchers, stood in for by their counted plain versions (the forward with its
+    statistics, the stats-fed backward at offset 0): per pair one stage-1
     call, AAM1's, and the final depth's unless the confidence term sends it to the plain
     confidence formula; remat recomputes stage 1 in the backward. The same counts are
     asserted for the kernels on the card."""
     calls = {"forward": 0, "backward": 0}
-    fwd, bwd = S.softargmin_torch, S.softargmin_backward_torch
+    fwd = S.softargmin_torch
+
+    def bwd(cost, start, interval, stats, depth, grad):
+        return S.softargmin_backward_stats_torch(cost, start, interval, 0, stats, depth, grad)
 
     def counted(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         return call
 
     monkeypatch.setattr(S, "softargmin_cuda", counted("forward", fwd))
