@@ -40,7 +40,9 @@ same source serve it:
     with its own counters.
 `softargmin_partial_torch` and `softargmin_backward_stats_torch` are their plain versions;
 the two launchers count their launches as the others do; `SplitSoftArgminFunction` ties
-them together for autograd.
+them together for autograd. The partial forward has its own kernel, whose grid (pixel
+tiles x chunks of D, the chunks of a tile one thread-block cluster) `partial_grid` reads;
+`softargmin_partial_split_torch` mirrors its order of arithmetic on that grid.
 """
 
 from __future__ import annotations
@@ -110,9 +112,11 @@ def _library() -> ctypes.CDLL:
             for fn in (lib.atvsnet_softargmin_partial_f32, lib.atvsnet_softargmin_partial_bf16):
                 fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.atvsnet_softargmin_grad_grid.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            for fn in (lib.atvsnet_softargmin_grad_grid, lib.atvsnet_softargmin_partial_grid):
+                fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
             lib.atvsnet_softargmin_noop.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            for fn in (lib.atvsnet_softargmin_grad_grid, lib.atvsnet_softargmin_noop):
+            for fn in (lib.atvsnet_softargmin_grad_grid, lib.atvsnet_softargmin_partial_grid,
+                       lib.atvsnet_softargmin_noop):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -151,6 +155,18 @@ def finite_or_zero(m: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
 
 
+def _merge_triples(triples):
+    """Merge (max, sum, weighted sum) triples in their order, as the kernels do: the max,
+    and the two sums taken against finite_or_zero of it (a triple that saw only +inf
+    weighs 0)."""
+    m = torch.stack([t[0] for t in triples]).amax(dim=0)
+    ref = finite_or_zero(m)
+    weights = [torch.exp(t[0] - ref) for t in triples]
+    total = sum(t[1] * wt for t, wt in zip(triples, weights))
+    num = sum(t[2] * wt for t, wt in zip(triples, weights))
+    return m, total, num
+
+
 def softargmin_split_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
                            depth_interval: torch.Tensor, slices: int,
                            chunk: int = 8) -> torch.Tensor:
@@ -179,10 +195,7 @@ def softargmin_split_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
             e = torch.exp(vc - ref[:, None])
             total, num, m = total * r + e.sum(dim=1), num * r + (sc * e).sum(dim=1), cm
         triples.append((m, total, num))
-    ref = finite_or_zero(torch.stack([m for m, _, _ in triples]).amax(dim=0))
-    weights = [torch.exp(m - ref) for m, _, _ in triples]
-    total = sum(t * wt for (_, t, _), wt in zip(triples, weights))
-    num = sum(n * wt for (_, _, n), wt in zip(triples, weights))
+    _, total, num = _merge_triples(triples)
     return (num / total)[..., None]
 
 
@@ -309,17 +322,39 @@ def softargmin_backward_cuda(cost_volume: torch.Tensor, depth_start: torch.Tenso
                             depth_interval, 0, stats, depth, grad)
 
 
+def packet_pixels(dtype: torch.dtype, path: str) -> int:
+    """Pixels a lane loads from one plane: 16 bytes of `dtype` on the aligned path (4 fp32,
+    8 bf16), one on the scalar path."""
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    return ALIGNMENT // torch.empty((), dtype=dtype).element_size() if path == "aligned" else 1
+
+
+def _query_grid(name: str, what: str, n: int, shape, dtype, path, device) -> tuple:
+    B, D, h, w = shape
+    grid = (ctypes.c_int * n)()
+    with torch.cuda.device(device):
+        err = getattr(_library(), name)(B, D, h * w, packet_pixels(dtype, path), grid)
+    if err != 0:
+        raise RuntimeError(f"reading the {what} grid failed: cudaError {err}")
+    return tuple(grid)
+
+
 def gradient_grid(shape, dtype: torch.dtype, path: str, device=None) -> tuple[int, int, int]:
     """The gradient kernel's grid for a (B, D, h, w) volume of `dtype` on `path` on the
     current (or given) CUDA device: (pixel tiles, chunks of D, planes per chunk)."""
-    B, D, h, w = shape
-    pix = ALIGNMENT // torch.empty((), dtype=dtype).element_size() if path == "aligned" else 1
-    grid = (ctypes.c_int * 3)()
-    with torch.cuda.device(device):
-        err = _library().atvsnet_softargmin_grad_grid(B, D, h * w, pix, grid)
-    if err != 0:
-        raise RuntimeError(f"reading the gradient kernel's grid failed: cudaError {err}")
-    return tuple(grid)
+    return _query_grid("atvsnet_softargmin_grad_grid", "gradient kernel's", 3, shape, dtype,
+                       path, device)
+
+
+def partial_grid(shape, dtype: torch.dtype, path: str, device=None) -> tuple[int, ...]:
+    """The partial kernel's grid for a (B, D_local, h, w) slice of `dtype` on `path` on the
+    current (or given) CUDA device: (pixel tiles, chunks of D, cluster size, warps per
+    block, planes a thread folds at a time); the chunks of a tile form one cluster (none
+    with one chunk), chunk c holding D // chunks planes, one more for c < D % chunks. The
+    last three are the arguments of softargmin_partial_split_torch that mirror the kernel."""
+    return _query_grid("atvsnet_softargmin_partial_grid", "partial kernel's", 5, shape, dtype,
+                       path, device)
 
 
 # ---- the soft-argmin over a D split across ranks ----
@@ -335,6 +370,43 @@ def softargmin_partial_torch(cost_volume: torch.Tensor, depth_start: torch.Tenso
     e = torch.exp(v - finite_or_zero(m)[:, None])
     s = sweep(v.shape[1], depth_start, depth_interval, offset)[:, :, None, None]
     return torch.stack([m, e.sum(dim=1), (s * e).sum(dim=1)])
+
+
+def softargmin_partial_split_torch(cost_volume: torch.Tensor, depth_start: torch.Tensor,
+                                   depth_interval: torch.Tensor, offset: int = 0,
+                                   chunks: int = 1, warps: int = 4,
+                                   batch: int = 4) -> torch.Tensor:
+    """Plain version that mirrors softargmin_partial_kernel's order of arithmetic (the grid
+    of `partial_grid`): D_local is cut into `chunks` runs of D // chunks planes, the first
+    D % chunks of them one plane longer; in each chunk warp k folds planes k, k + warps, ...
+    into an online-softmax triple `batch` planes at a time; the warps' triples are merged,
+    then, with more than one chunk, the chunks' (the cluster's merge). The inputs of
+    softargmin_partial_torch -> the same (3, B, h, w) fp32 triple. Used by tests only."""
+    if min(chunks, warps, batch) < 1:
+        raise ValueError("chunks, warps and batch must be positive, "
+                         f"got {chunks}, {warps}, {batch}")
+    B, D, h, w = cost_volume.shape
+    v = -cost_volume.to(torch.float32)
+    s = sweep(D, depth_start, depth_interval, offset)[:, :, None, None]
+    per, rem = divmod(D, chunks)
+    per_chunk = []
+    for c in range(chunks):
+        first = c * per + min(c, rem)
+        per_warp = []
+        for k in range(warps):
+            planes = list(range(first + k, first + per + (c < rem), warps))
+            m = v.new_full((B, h, w), -torch.inf)
+            total, num = v.new_zeros((B, h, w)), v.new_zeros((B, h, w))
+            for i in range(0, len(planes), batch):
+                vc, sc = v[:, planes[i:i + batch]], s[:, planes[i:i + batch]]
+                cm = torch.maximum(m, vc.amax(dim=1))
+                ref = finite_or_zero(cm)
+                r = torch.exp(m - ref)
+                e = torch.exp(vc - ref[:, None])
+                total, num, m = total * r + e.sum(dim=1), num * r + (sc * e).sum(dim=1), cm
+            per_warp.append((m, total, num))
+        per_chunk.append(_merge_triples(per_warp))
+    return torch.stack(_merge_triples(per_chunk) if chunks > 1 else per_chunk[0])
 
 
 def merge_partials(triple: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
@@ -413,15 +485,21 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
-def empty_launch(cost_volume: torch.Tensor, backward: bool = False) -> None:
-    """Launch the library's no-op kernel on the grid that `softargmin_cuda` (or, with
-    `backward`, the gradient kernel) uses for this volume. It moves no byte and counts as
-    no launch: its device time is what a launch of that grid costs."""
+EMPTY_LAUNCH_GRIDS = ("forward", "gradient", "partial")
+
+
+def empty_launch(cost_volume: torch.Tensor, grid: str = "forward") -> None:
+    """Launch the library's no-op kernel on the grid that `softargmin_cuda` ("forward"),
+    the gradient kernel ("gradient") or the partial kernel ("partial", launched as that
+    kernel is: the same clusters, a programmatic dependent launch) uses for this volume.
+    It moves no byte and counts as no launch: its device time is what a launch of that
+    grid costs."""
     B, D, h, w = cost_volume.shape
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
-    pix = ALIGNMENT // cost_volume.element_size() if path == "aligned" else 1
     with torch.cuda.device(cost_volume.device):
-        err = _library().atvsnet_softargmin_noop(B, D, h * w, pix, int(backward),
+        err = _library().atvsnet_softargmin_noop(B, D, h * w,
+                                                 packet_pixels(cost_volume.dtype, path),
+                                                 EMPTY_LAUNCH_GRIDS.index(grid),
                                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"empty launch failed: cudaError {err}")

@@ -102,11 +102,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 backward on depth=2 against one process (loss rtol 1e-4, gradients 5e-3),
                 4 and 4 launches of the two depth-split kernels per rank; (d) the flagship
                 fp32 train step, remat on, on depth=2: seconds and peak memory per rank
-The kernel phase also holds the depth-split entry points (the partial forward, the
-stats-fed backward: the gradient kernel at the slice's offset) against their plain
+The kernel phase also holds the depth-split entry points (the partial forward, its own
+kernel on a grid of pixel tiles x chunks of D whose chunks form a thread-block cluster;
+the stats-fed backward: the gradient kernel at the slice's offset) against their plain
 versions at the flagship's depth=2 slices (SPLIT_SHAPES), fp32 and bf16, a slice whose D
-the gradient kernel's chunk does not divide, the depth phase's train slice (B = 2) in both
-dtypes, an all-+inf slice and a misaligned one, and timing times them beside their bounds.
+neither kernel's chunking divides, the depth phase's train slice (B = 2) in both dtypes,
+clusters of 2 (the scalar path), 4 (B = 2, h*w no multiple of the partial kernel's tile)
+and 8, an all-+inf slice and a misaligned one, each line with both grids; timing times
+them beside their bounds, an empty launch of their grid and torch.amax over D of the
+same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
@@ -785,7 +789,7 @@ def phase_timing_backward(kind):
         # what the card reaches on the same bytes: a device copy of the cost (read once,
         # written once), beside the kernel and its bound
         copy_ms = device_ms(lambda c, *_: torch.empty_like(c).copy_(c), bufs, 50)
-        e_ms = device_ms(lambda c, *_: S.empty_launch(c, backward=True), bufs, 50)
+        e_ms = device_ms(lambda c, *_: S.empty_launch(c, grid="gradient"), bufs, 50)
         b_ms, b_by = backward_bound_ms(shape, elem, kind)
         emit(phase="timing", what="softargmin_backward", shape=list(shape),
              dtype=str(dtype).split(".")[-1], path=path,
@@ -1996,8 +2000,11 @@ def split_inputs(shape, dtype, seed, transform=None):
 
 def split_kernel_cases():
     """(name, slice shape, dtype, path expected, transform). "D % chunk": a slice whose D
-    the gradient kernel's chunk of planes does not divide; the train shape is the depth
-    phase's (DEPTH_TRAIN_SHAPE, B = 2)."""
+    neither the gradient kernel's chunk of planes nor the partial kernel's number of
+    chunks divides; the train shape is the depth phase's (DEPTH_TRAIN_SHAPE, B = 2);
+    "cluster of N": the partial kernel's chunks form a cluster of N blocks, 4 with B = 2
+    and h*w no multiple of its tile (a tile spans both samples, the last is cut), 8 at
+    the portable limit, 2 on the scalar path (checked in phase_kernel_split)."""
     f32, bf16 = torch.float32, torch.bfloat16
     native, tile = SPLIT_SHAPES
     return [("native slice", native, f32, "aligned", None), ("native slice bf16", native, bf16, "aligned", None),
@@ -2005,6 +2012,10 @@ def split_kernel_cases():
             ("D % chunk slice", (1, 65, 120, 224), f32, "aligned", None),
             ("train slice, B=2", DEPTH_TRAIN_SHAPE, f32, "aligned", None),
             ("train slice, B=2 bf16", DEPTH_TRAIN_SHAPE, bf16, "aligned", None),
+            ("cluster of 4, B=2, tile cut", (2, 128, 30, 36), f32, "aligned", None),
+            ("cluster of 4, B=2, tile cut bf16", (2, 128, 30, 36), bf16, "aligned", None),
+            ("cluster of 8", (1, 256, 8, 16), f32, "aligned", None),
+            ("cluster of 2, scalar", (1, 64, 3, 33), f32, "scalar", None),
             ("all +inf slice", native, f32, "aligned", "inf"),
             ("misaligned slice", native, f32, "scalar", "misaligned")]
 
@@ -2019,8 +2030,16 @@ def phase_kernel_split() -> tuple[float, float]:
     for i, (name, shape, dtype, path, transform) in enumerate(split_kernel_cases()):
         full, cost, ds, di, off, stats, depth, g = split_inputs(shape, dtype, 400 + i, transform)
         grid = S.gradient_grid(shape, dtype, path)
-        if name.startswith("D % chunk") and shape[1] % grid[2] == 0:
-            raise AssertionError(f"split case '{name}': chunks of {grid[2]} planes divide D")
+        pgrid = S.partial_grid(shape, dtype, path)
+        tile_pixels = 32 * S.packet_pixels(dtype, path)
+        if name.startswith("D % chunk") and (shape[1] % grid[2] == 0 or shape[1] % pgrid[1] == 0):
+            raise AssertionError(f"split case '{name}': chunks of {grid[2]} planes or "
+                                 f"{pgrid[1]} chunks divide D")
+        if name.startswith("cluster of") and (
+                pgrid[2] != int(name.split()[2].strip(",")) or
+                ("tile cut" in name and shape[2] * shape[3] % tile_pixels == 0)):
+            raise AssertionError(f"split case '{name}': the partial kernel's grid {pgrid} "
+                                 f"(tiles of {tile_pixels} pixels) misses the case")
         before = (dict(S.softargmin_partial_cuda.path_launches),
                   dict(S.softargmin_backward_stats_cuda.path_launches))
         got = S.softargmin_partial_cuda(cost, ds, di, off)
@@ -2048,7 +2067,7 @@ def phase_kernel_split() -> tuple[float, float]:
               and auto_ok and inf_ok)
         emit(phase="kernel", direction="depth split", case=name, shape=list(shape),
              dtype=str(dtype).split(".")[-1], offset=off, path=took, grid=list(grid),
-             max_exact=max_ok,
+             partial_grid=list(pgrid), cluster=pgrid[2], max_exact=max_ok,
              max_abs_err_partial=err, merged_vs_whole=merged_err, max_abs_err_backward=err_bwd,
              max_abs_err_backward_vs_autograd=err_auto, inf_slice_triple_ok=inf_ok, ok=ok)
         if not ok:
@@ -2060,20 +2079,23 @@ def phase_kernel_split() -> tuple[float, float]:
 
 
 def phase_timing_split(kind):
-    """Device times of the depth-split kernels beside their plain versions, bounds and an
-    empty launch, at SPLIT_SHAPES in fp32 and bf16 (the backward at the native slice, the
-    shape training runs it at). Returns per kernel (ms, plain_ms, bound_ms, bound_by) of
-    one depth=2 rank: the flagship forward's partial launches (depth_shapes(4, 2)) and a
-    flagship train step's stats-fed backward launches (6 at the native slice)."""
+    """Device times of the depth-split kernels beside their plain versions, bounds, an
+    empty launch and torch.amax over D of the same volume (a yardstick that reads the same
+    bytes), at SPLIT_SHAPES in fp32 and bf16 (the backward at the native slice, the shape
+    training runs it at) and the partial forward at the train slice (DEPTH_TRAIN_SHAPE).
+    Returns per kernel (ms, plain_ms, bound_ms, bound_by) of one depth=2 rank: the
+    flagship forward's partial launches (depth_shapes(4, 2)) and a flagship train step's
+    stats-fed backward launches (6 at the native slice)."""
     f32, bf16 = torch.float32, torch.bfloat16
     native, tile = SPLIT_SHAPES
     per_forward = depth_shapes(4, 2)
     totals = {"partial": dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0),
               "backward_stats": dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)}
     bound_by = {"partial": "bytes", "backward_stats": "bytes"}
+    train = DEPTH_TRAIN_SHAPE
     for backward, shape, dtype in [(False, native, f32), (False, tile, f32), (False, native, bf16),
-                                   (False, tile, bf16), (True, native, f32), (True, native, bf16),
-                                   (True, tile, f32)]:
+                                   (False, tile, bf16), (False, train, f32), (False, train, bf16),
+                                   (True, native, f32), (True, native, bf16), (True, tile, f32)]:
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
         bufs = [split_inputs(shape, dtype, 500 + i)[1:] for i in range(nbuf)]
@@ -2086,13 +2108,18 @@ def phase_timing_split(kind):
             bufs = [b[:4] for b in bufs]
             k_ms = device_ms(S.softargmin_partial_cuda, bufs, 50)
             p_ms = device_ms(S.softargmin_partial_torch, bufs, 20)
-        e_ms = device_ms(lambda c, *_: S.empty_launch(c, backward=backward), bufs, 50)
+        grid = "gradient" if backward else "partial"
+        e_ms = device_ms(lambda c, *_: S.empty_launch(c, grid=grid), bufs, 50)
+        # a yardstick, not the same function: one PyTorch reduction over D that reads the
+        # same bytes once and writes a plane
+        amax_ms = device_ms(lambda c, *_: torch.amax(c, dim=1), bufs, 50)
         b_ms, b_by = split_bound_ms(shape, elem, kind, backward)
         name = "backward_stats" if backward else "partial"
         emit(phase="timing", what="softargmin_" + name, shape=list(shape),
              dtype=str(dtype).split(".")[-1], path="aligned",
-             grid=list(S.gradient_grid(shape, dtype, "aligned")) if backward else None,
-             kernel_ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms, bound_ms=b_ms, bound_by=b_by,
+             grid=list((S.gradient_grid if backward else S.partial_grid)(shape, dtype, "aligned")),
+             kernel_ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms, amax_ms=amax_ms, bound_ms=b_ms,
+             bound_by=b_by,
              empty_launch_ms=e_ms, kernel_over_bound=k_ms / b_ms, buffers=nbuf, library_ms=None,
              library="none: no single PyTorch call computes a partial soft-argmin or its gradient")
         del bufs
@@ -2121,8 +2148,11 @@ def phase_kernel_turns(base, root: str):
     """The kernels of this tree against those of `base` (load_baseline) on the same inputs
     in turns (base, this, this, base): the forward without statistics at the timed shapes,
     the whole-volume backward at the train and flagship shapes, the stats-fed backward at
-    SPLIT_SHAPES. A baseline whose softargmin_backward_cuda takes no statistics (before the
-    one gradient kernel) recomputes them; it gets the same depth and gradient."""
+    SPLIT_SHAPES, the partial forward at SPLIT_SHAPES and the depth phase's train slice
+    (DEPTH_TRAIN_SHAPE), fp32 and bf16, and at the native slice in fp32 also right after
+    another kernel (the partial forward's launch overlaps the kernel before it). A
+    baseline whose softargmin_backward_cuda takes no statistics (before the one gradient
+    kernel) recomputes them; it gets the same depth and gradient."""
     import inspect
     base_has_stats = "stats" in inspect.signature(base.softargmin_backward_cuda).parameters
 
@@ -2140,6 +2170,8 @@ def phase_kernel_turns(base, root: str):
         ((1, 128, 120, 896), f32), ((1, 128, 120, 224), bf16)]]
     cases += [("softargmin_backward_stats", s_, d_) for s_, d_ in [
         (SPLIT_SHAPES[0], f32), (SPLIT_SHAPES[0], bf16), (SPLIT_SHAPES[1], f32)]]
+    cases += [("softargmin_partial", s_, d_) for s_ in SPLIT_SHAPES + (DEPTH_TRAIN_SHAPE,)
+              for d_ in (f32, bf16)]
     for what, shape, dtype in cases:
         elem = torch.tensor([], dtype=dtype).element_size()
         nbuf = max(2, math.ceil(200e6 / (math.prod(shape) * elem)))
@@ -2149,6 +2181,9 @@ def phase_kernel_turns(base, root: str):
         elif what == "softargmin_backward":
             bufs = [backward_inputs(shape, dtype, 600 + i) for i in range(nbuf)]
             fns = {"base": base_backward, "this": S.softargmin_backward_cuda}
+        elif what == "softargmin_partial":
+            bufs = [split_inputs(shape, dtype, 600 + i)[1:5] for i in range(nbuf)]
+            fns = {"base": base.softargmin_partial_cuda, "this": S.softargmin_partial_cuda}
         else:
             bufs = [split_inputs(shape, dtype, 600 + i)[1:] for i in range(nbuf)]
             fns = {"base": base.softargmin_backward_stats_cuda,
@@ -2156,10 +2191,21 @@ def phase_kernel_turns(base, root: str):
         ms = {"base": [], "this": []}
         for who in ("base", "this", "this", "base"):
             ms[who].append(device_ms(fns[who], bufs, 50))
+        after = None
+        if what == "softargmin_partial" and shape == SPLIT_SHAPES[0] and dtype == f32:
+            # right after another kernel, as on the main path (a convolution there, an
+            # elementwise add over 64 MB here): the pair's time less the add's alone
+            x = torch.zeros(2**24, device="cuda")
+            add_ms = device_ms(lambda *_: x.add_(1.0), bufs, 50)
+            after = {"base": [], "this": [], "add_ms": add_ms}
+            for who in ("base", "this", "this", "base"):
+                pair = device_ms(lambda *b: (x.add_(1.0), fns[who](*b)), bufs, 50)
+                after[who].append(pair - add_ms)
         del bufs
         emit(phase="timing", what=what, turns="base, this, this, base", baseline=root,
              shape=list(shape), dtype=str(dtype).split(".")[-1], base_ms=ms["base"],
-             this_ms=ms["this"], this_over_base=sum(ms["this"]) / sum(ms["base"]))
+             this_ms=ms["this"], this_over_base=sum(ms["this"]) / sum(ms["base"]),
+             after_another_kernel=after)
 
 
 def depth_rank_forward(mesh, model, cfg, images, cams) -> dict:
@@ -2461,7 +2507,7 @@ def main() -> int:
         "max_abs_err": max_err_bwd, "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
         "bound_ms": bwd_totals["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
     }, {
-        "name": "softargmin_partial", "kernel": "softargmin_kernel", "route": "cuda",
+        "name": "softargmin_partial", "kernel": "softargmin_partial_kernel", "route": "cuda",
         "source": "atvsnet_torch/csrc/softargmin.cu",
         "replaces": "atvsnet_tpu/ops/softargmin.py:26 (its reduction over a D split across "
                     "the 'depth' mesh axis, atvsnet_tpu/parallel/pipeline.py:51-71)",

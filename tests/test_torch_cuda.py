@@ -1,7 +1,8 @@
 """CUDA-only tests of the port: the hand-written soft-argmin kernels (the forward with and
 without its softmax statistics, the one gradient kernel behind both backward entry points,
-the depth split's partial forward) on the card, the forward, pair_batch, DepthEstimator and training paths that launch them,
-and the consistency fusion.
+the depth split's partial forward, its grid's edges and its grid query) on the card, the
+forward, pair_batch, DepthEstimator and training paths that launch them, and the
+consistency fusion.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
@@ -423,7 +424,9 @@ def _split_of(depth_num, rank=0, size=1):
 @pytest.mark.parametrize("shape,dtype,path,offset", [((1, 64, 24, 32), torch.float32, "aligned", 64),
                                                      ((1, 64, 24, 32), torch.bfloat16, "aligned", 0),
                                                      ((2, 16, 7, 33), torch.float32, "scalar", 16),
-                                                     ((1, 12, 5, 7), torch.bfloat16, "scalar", 3)])
+                                                     ((1, 12, 5, 7), torch.bfloat16, "scalar", 3),
+                                                     ((1, 64, 3, 33), torch.float32, "scalar", 64),
+                                                     ((1, 64, 3, 33), torch.bfloat16, "scalar", 0)])
 def test_partial_kernel_matches_plain(cuda, shape, dtype, path, offset):
     cost, ds, di = _inputs(shape, dtype, cuda)
     cost.view(shape[0], shape[1], -1)[:, :, ::5] = torch.inf      # all-+inf pixels: (-inf, 0, 0)
@@ -436,6 +439,50 @@ def test_partial_kernel_matches_plain(cuda, shape, dtype, path, offset):
     assert torch.equal(got[0], ref[0])                              # the max is exact
     torch.testing.assert_close(got[1:], ref[1:], rtol=RTOL, atol=ATOL)
     assert bool(torch.isneginf(got[0]).view(shape[0], -1)[:, ::5].all())
+
+
+@pytest.mark.parametrize("shape,dtype,offset,edge", [
+    ((2, 16, 32, 40), torch.float32, 16, "no cluster"),      # the depth phase's train slice
+    ((2, 16, 32, 40), torch.bfloat16, 16, "no cluster"),
+    ((2, 128, 30, 36), torch.float32, 0, "cluster, tile cut"),  # B = 2, h*w no multiple of the tile
+    ((2, 128, 30, 36), torch.bfloat16, 0, "cluster, tile cut"),
+    ((1, 256, 8, 16), torch.float32, 0, "cluster of 8"),
+    ((1, 65, 24, 32), torch.float32, 65, "chunks do not divide D")])
+def test_partial_kernel_at_its_grid_edges(cuda, shape, dtype, offset, edge):
+    """The partial kernel where its grid has edges: the train slice, whose warps hold one
+    batch of planes each and so no cluster; clusters of several chunks, with a tile that
+    spans two samples and one that is cut, and of the portable 8; a D_local that the
+    chunks do not divide. The max to the bit and the sums at rtol 1e-5 against the plain
+    partial forward and against the mirror of the kernel's arithmetic on the same grid."""
+    tiles, chunks, cluster, warps, batch = S.partial_grid(shape, dtype, "aligned")
+    tile_pixels = 32 * S.packet_pixels(dtype, "aligned")
+    assert {"no cluster": cluster == 1,
+            "cluster, tile cut": cluster > 1 and shape[0] == 2
+            and shape[2] * shape[3] % tile_pixels != 0,
+            "cluster of 8": cluster == 8,
+            "chunks do not divide D": cluster > 1 and shape[1] % chunks != 0}[edge]
+    cost, ds, di = _inputs(shape, dtype, cuda)
+    got = S.softargmin_partial_cuda(cost, ds, di, offset)
+    torch.cuda.synchronize()
+    ref = S.softargmin_partial_torch(cost, ds, di, offset)
+    mirror = S.softargmin_partial_split_torch(cost, ds, di, offset, chunks, warps, batch)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[0], mirror[0])
+    torch.testing.assert_close(got[1:], ref[1:], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got[1:], mirror[1:], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partial_grid_at_the_flagship_slice(cuda, dtype):
+    """The grid query at a depth=2 rank's native slice: every number positive, the tiles
+    cover the pixels, one cluster is the chunks of a tile (at most the portable 8), and
+    every warp of every chunk has a plane of D."""
+    shape = (1, 64, 120, 224)
+    grid = S.partial_grid(shape, dtype, "aligned")
+    print(f"partial grid at {shape} {dtype}: {grid}")
+    tiles, chunks, cluster, warps, batch = grid
+    assert min(grid) > 0
+    assert tiles * 32 * S.packet_pixels(dtype, "aligned") >= shape[2] * shape[3]
+    assert cluster == chunks <= 8 and chunks * warps <= shape[1]
 
 
 @pytest.mark.parametrize("shape,dtype,path,offset", [((1, 64, 24, 32), torch.float32, "aligned", 64),

@@ -221,3 +221,105 @@ def test_plain_forward_stats_of_an_all_inf_pixel():
     assert bool(torch.isnan(depth[0, 1, 2]).all()) and int(torch.isnan(depth).sum()) == 1
     assert float(stats[0, 0, 1, 2]) == -np.inf and float(stats[1, 0, 1, 2]) == 0.0
     assert bool(torch.isfinite(stats[:, 0, 0]).all())
+
+
+# ---- the depth split's partial forward: the mirror of its kernel's arithmetic ----
+
+def _merge_halves(t0, t1):
+    """Two ranks' triples (3, B, h, w) merged into one, as the ranks' all-reduces do."""
+    m = torch.maximum(t0[0], t1[0])
+    ref = S.finite_or_zero(m)
+    sums = t0[1:] * torch.exp(t0[0] - ref) + t1[1:] * torch.exp(t1[0] - ref)
+    return torch.cat([m[None], sums])
+
+
+@pytest.mark.parametrize("D,chunks,batch", [(16, 1, 4), (16, 4, 4), (13, 2, 4), (13, 4, 1),
+                                            (40, 8, 2), (65, 2, 4), (12, 8, 3)])
+def test_partial_split_version_merged_matches_pallas_interpret(D, chunks, batch):
+    """The mirror of the partial kernel (D in chunks, 4 warps taking planes in turn, folds of
+    `batch` planes, the warps' and the chunks' merges) on the two halves of a 2D-plane
+    volume, merged as two ranks are by merge_partials, against the JAX kernel on the whole
+    volume: the sums only change order. Some chunk counts do not divide D."""
+    cost, ds, di = _inputs(2, 2 * D, 3, 8, seed=40 + D)
+    ref = np.asarray(jsoftargmin(jnp.asarray(cost), 2 * D, jnp.asarray(ds), jnp.asarray(di),
+                                 interpret=True))
+    c, s, i = torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di)
+    halves = [S.softargmin_partial_split_torch(c[:, k * D:(k + 1) * D].contiguous(), s, i, k * D,
+                                               chunks=chunks, batch=batch) for k in range(2)]
+    depth, stats = S.merge_partials(_merge_halves(*halves), None)
+    assert depth.shape == ref.shape and depth.dtype == torch.float32
+    np.testing.assert_allclose(depth.numpy(), ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(stats[0].numpy(), (-cost).max(axis=1))
+
+
+@pytest.mark.parametrize("chunks,batch", [(1, 4), (2, 4), (4, 2), (8, 4), (3, 1)])
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0), (torch.float32, 37),
+                                          (torch.bfloat16, 64)])
+def test_partial_split_version_matches_partial_torch(dtype, offset, chunks, batch):
+    """The mirror's triple against the plain partial forward: the max to the bit, the two
+    sums at rtol 1e-5."""
+    cost, ds, di = _inputs(2, 33, 3, 8, seed=50)
+    c = torch.from_numpy(cost).to(dtype)
+    args = (c, torch.from_numpy(ds), torch.from_numpy(di), offset)
+    got = S.softargmin_partial_split_torch(*args, chunks=chunks, batch=batch)
+    ref = S.softargmin_partial_torch(*args)
+    assert got.shape == (3, 2, 3, 8) and got.dtype == torch.float32
+    assert torch.equal(got[0], ref[0])
+    torch.testing.assert_close(got[1:], ref[1:], rtol=1e-5, atol=0)
+
+
+def _inf_at(cost, which, D):
+    """+inf cost at every other pixel of the last row: the first chunk of 4 (planes 0-7 of
+    32), the third, the planes of warp 1 in every chunk, or every plane (an all-+inf pixel)."""
+    cost = cost.copy()
+    planes = {"first chunk": slice(0, D // 4), "third chunk": slice(D // 2, 3 * D // 4),
+              "one warp": slice(1, D, 4), "all": slice(0, D)}[which]
+    cost[:, planes, -1, ::2] = np.inf
+    return cost
+
+
+@pytest.mark.parametrize("chunks", [2, 4])
+@pytest.mark.parametrize("which", ["first chunk", "third chunk", "one warp", "all"])
+def test_partial_split_version_with_inf_planes(which, chunks):
+    """+inf planes that fill whole batches, warps or chunks: the mirror agrees with the
+    plain partial forward; where every plane of a pixel is +inf the triple is (-inf, 0, 0)."""
+    cost, ds, di = _inputs(1, 32, 3, 8, seed=51)
+    cost = _inf_at(cost, which, 32)
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di), 32)
+    got = S.softargmin_partial_split_torch(*args, chunks=chunks, batch=2)
+    ref = S.softargmin_partial_torch(*args)
+    assert torch.equal(got[0], ref[0])
+    torch.testing.assert_close(got[1:], ref[1:], rtol=1e-5, atol=0)
+    inf_pixels = got[:, :, -1, ::2]
+    if which == "all":
+        assert bool(torch.isneginf(inf_pixels[0]).all()) and bool((inf_pixels[1:] == 0).all())
+    else:
+        assert bool(torch.isfinite(got).all()) and bool((got[1] > 0).all())
+
+
+def test_partial_split_version_rejects_bad_grids():
+    cost, ds, di = _inputs(1, 8, 2, 4, seed=52)
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di))
+    for bad in (dict(chunks=0), dict(warps=0), dict(batch=0)):
+        with pytest.raises(ValueError, match="positive"):
+            S.softargmin_partial_split_torch(*args, **bad)
+
+
+@pytest.mark.parametrize("dtype,path,pixels", [(torch.float32, "aligned", 4),
+                                               (torch.bfloat16, "aligned", 8),
+                                               (torch.float32, "scalar", 1),
+                                               (torch.bfloat16, "scalar", 1)])
+def test_packet_pixels_of_each_path(dtype, path, pixels):
+    """What the grid queries and the empty launch hand the library: pixels per packet."""
+    assert S.packet_pixels(dtype, path) == pixels
+    with pytest.raises(ValueError, match="path"):
+        S.packet_pixels(dtype, "vector")
+
+
+def test_partial_wrapper_refuses_cpu_tensors():
+    cost, ds, di = _inputs(1, 8, 4, 4, seed=53)
+    args = (torch.from_numpy(cost), torch.from_numpy(ds), torch.from_numpy(di), 8)
+    before = (S.softargmin_partial_cuda.launches, dict(S.softargmin_partial_cuda.path_launches))
+    with pytest.raises(ValueError, match="CUDA"):
+        S.softargmin_partial_cuda(*args)
+    assert (S.softargmin_partial_cuda.launches, S.softargmin_partial_cuda.path_launches) == before
