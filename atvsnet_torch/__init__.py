@@ -38,6 +38,20 @@ Entry points:
                                   the free-space hull of a stack of depth maps
   native                          the C++/OpenMP host library (compaction, back-projection,
                                   PLY writer), built with g++ into build/atvsnet_torch/
+  utils.profiling                 StageTimer (wall-clock stages) and device_trace (a
+                                  torch.profiler trace under a logdir)
+
+Public helpers that no path calls, as the JAX package exports them:
+  geometry                        split_cam, camera_center, depth_range_from_cams,
+                                  homography_warp and the warps, homographies and depth
+                                  regression that atvsnet_tpu.geometry exports
+  models.tvsnet                   build_cost_volume (the explicit cost volume),
+                                  aam_aggregate and cost_volume_aggregation (AAM over
+                                  view-trailing (B, D, h, w, C, P) volumes)
+  nn.aam                          attention_activation, attention_aggregate (view-trailing),
+                                  Attention2D and attention_activation_2d
+  nn.layers                       l2_pool_same, dense, dropout, l2_normalize,
+                                  split_separable_conv2d
 
 Those that run the model take a `device`. Left out, it is "cuda", and a machine without
 CUDA raises instead of running on the CPU; tests pass device="cpu".

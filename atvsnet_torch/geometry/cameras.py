@@ -20,6 +20,18 @@ def split_cam(cam: torch.Tensor):
     return K, R, t
 
 
+def camera_center(cam: torch.Tensor) -> torch.Tensor:
+    """World-space camera center c = -R^T t, shape (..., 3, 1)."""
+    _, R, t = split_cam(cam)
+    return -(R.transpose(-1, -2) @ t)
+
+
+def depth_range_from_cams(cams: torch.Tensor):
+    """depth_start and depth_interval of the reference (index-0) camera, two (B,) vectors
+    from cams (B, N, 2, 4, 4), as reference atvsnet/example.py:66-69 slices them."""
+    return cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1]
+
+
 def scale_camera_np(cam: np.ndarray, scale: float) -> np.ndarray:
     """Scale the intrinsics (fx, fy, cx, cy) of one (2, 4, 4) cam for a resized image
     (numpy, host side; reference atvsnet/preprocess.py:27-36)."""

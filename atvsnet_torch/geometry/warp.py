@@ -97,6 +97,20 @@ def _homography_coords(homography: torch.Tensor, height: int, width: int):
     return warped[..., 0, :] / denom, warped[..., 1, :] / denom
 
 
+def homography_warp(image: torch.Tensor, homography: torch.Tensor, method: str = "bilinear",
+                    output_mask: bool = False):
+    """Warp image (B, H, W, C) by one homography (B, 3, 3) per sample: each output pixel p
+    samples image at H p (reference homography_warping.py:230-271).
+
+    Returns (B, H, W, C) [+ the boolean validity mask (B, H, W, 1)].
+    """
+    B, H, W, C = image.shape
+    x, y = _homography_coords(homography, H, W)            # (B, HW)
+    out, mask = interpolate(image, x, y, method=method, output_mask=True)
+    out = out.reshape(B, H, W, C)
+    return (out, mask.reshape(B, H, W, 1)) if output_mask else out
+
+
 def quantize_warp(out: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """The int8 round trip of a bilinear plane-sweep volume out (B, D, H, W, C) warped from
     image (B, H, W, C) (atvsnet_tpu/geometry/warp.py:_maybe_quant_warp).

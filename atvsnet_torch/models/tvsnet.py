@@ -30,7 +30,8 @@ from atvsnet_torch.geometry.warp import (
     transform_depth,
     warp_by_depth,
 )
-from atvsnet_torch.nn.aam import Attention, OutputConv, attention_aggregate_stacked, output_conv
+from atvsnet_torch.nn.aam import (Attention, OutputConv, attention_aggregate,
+                                  attention_aggregate_stacked, output_conv)
 from atvsnet_torch.nn.crm import CRM
 from atvsnet_torch.nn.fem import FEM, FEMShallow
 from atvsnet_torch.nn.layers import ActQuant
@@ -93,6 +94,28 @@ def extract_features(model: ATVSNet, images: torch.Tensor, cfg: PipelineConfig,
     net = model.fem_shallow if shallow else model.fem
     out = net(images.reshape((B * N,) + images.shape[2:]).to(cfg.dtype), eps=cfg.bn_eps)
     return out.reshape((B, N) + out.shape[1:])
+
+
+def build_cost_volume(ref_feature: torch.Tensor, view_feature: torch.Tensor,
+                      ref_cam: torch.Tensor, view_cam: torch.Tensor, cfg: PipelineConfig,
+                      depth_start: torch.Tensor, depth_interval: torch.Tensor,
+                      warp_ref: bool = False):
+    """The explicit cost volume concat(reference over D, view warped per plane),
+    (B, D, h, w, 2F), and the view's homographies (B, D, 3, 3) (reference
+    model.py:157-200). warp_ref=True warps the reference through its ref->ref
+    homographies instead of tiling it. tvsnet_base never builds this volume: it feeds the
+    D-constant reference half to the CRM as 2D convs."""
+    D = cfg.max_d
+    homographies = get_homographies(ref_cam, view_cam, D, depth_start, depth_interval,
+                                    cfg.inverse_depth)
+    if warp_ref:
+        ref_h = get_homographies(ref_cam, ref_cam, D, depth_start, depth_interval,
+                                 cfg.inverse_depth)
+        ref_vol = plane_sweep_warp(ref_feature, ref_h, quant=cfg.warp_quant)
+    else:
+        ref_vol = ref_feature[:, None].expand(-1, D, -1, -1, -1)
+    view_vol = plane_sweep_warp(view_feature, homographies, quant=cfg.warp_quant)
+    return torch.cat([ref_vol, view_vol], dim=-1), homographies
 
 
 class PairOutputs(NamedTuple):
@@ -265,6 +288,20 @@ def aam_output_conv(model: ATVSNet, agg_cost: torch.Tensor, stage: int,
     if stage == 1:
         return output_conv(model.aam1_out, "attention_prob_vol", agg_cost, split)
     return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost, split)
+
+
+def aam_aggregate(model: ATVSNet, cost_volumes: torch.Tensor, stage: int) -> torch.Tensor:
+    """AAM over the view-trailing (B, D, h, w, C, P) per-pair volumes -> (B, D, h, w, C);
+    stage 1 = AAM1, 2 = AAM2 (reference model.py:445-468)."""
+    return attention_aggregate(model.aam1_att if stage == 1 else model.aam2_att, cost_volumes)
+
+
+def cost_volume_aggregation(model: ATVSNet, cost_volumes: torch.Tensor, stage: int = 1,
+                            keepchannel: bool = False) -> torch.Tensor:
+    """aam_aggregate, then (unless keepchannel) the stage's 1-channel output conv:
+    (B, D, h, w, C) with keepchannel, else (B, D, h, w) (reference model.py:445-468)."""
+    agg = aam_aggregate(model, cost_volumes, stage)
+    return agg if keepchannel else aam_output_conv(model, agg, stage)
 
 
 @torch.no_grad()

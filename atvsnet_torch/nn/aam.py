@@ -14,6 +14,11 @@ the softmax's max and normaliser, and the weighted sum. Those that carry gradien
 through torch.distributed.nn's all-reduce, whose backward all-reduces the gradient.
 With the D planes split over a 'depth' group (parallel.depth), the two 3x3x3 convs
 exchange halos; the softmax over views is per plane and needs no collective over D.
+
+The pipeline aggregates the view-leading stack (attention_aggregate_stacked). The
+view-trailing (B, D, h, w, C, N) forms (attention_activation, attention_aggregate) and
+the 2D variant (Attention2D, attention_activation_2d) are the JAX package's public
+helpers, which no path of either package calls.
 """
 
 from __future__ import annotations
@@ -37,12 +42,59 @@ class Attention(tnn.Module):
         self.weight_shared = tnn.Parameter(L.glorot_normal(shape, generator))
 
 
+class Attention2D(tnn.Module):
+    """The 2D variant's weights (init_attention_2d): weight_unique and weight_shared, TF
+    (k, k, C, C) kernels held as (C, C, k, k)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = (kernel_size,) * 2 + (channels, channels)
+        self.weight_unique = tnn.Parameter(L.glorot_normal(shape, generator))
+        self.weight_shared = tnn.Parameter(L.glorot_normal(shape, generator))
+
+
 class OutputConv(tnn.Module):
     """3x3x3 conv to 1 channel, no relu or bias, registered under `name`."""
 
     def __init__(self, name: str, channels: int, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.add_module(name, L.Conv(3, channels, 1, nd=3, generator=generator))
+
+
+def _unique_shared(att: Attention, x: torch.Tensor, split=None):
+    """relu(conv3d(x_i, W_unique)) and relu(conv3d(x_i, W_shared)) of every view of the
+    view-leading stack x (N, B, D, h, w, C), each shaped as x."""
+    N, B, C = x.shape[0], x.shape[1], x.shape[-1]
+    xv = x.reshape((N * B,) + x.shape[2:])
+    # [unique | shared] stacked on the output-channel axis: one conv for both
+    w_cat = torch.cat([att.weight_unique, att.weight_shared], dim=0)
+    both = L.conv(xv, w_cat, relu=True, split=split).reshape(x.shape[:-1] + (2 * C,))
+    return both[..., :C], both[..., C:]
+
+
+def attention_activation(att: Attention, x: torch.Tensor) -> torch.Tensor:
+    """View-trailing stack (B, D, h, w, C, N) -> the per-view activations a_i, (B, D, h, w,
+    C, N)."""
+    unique, shared = _unique_shared(att, x.movedim(-1, 0))
+    return (unique - shared + shared.sum(dim=0, keepdim=True)).movedim(0, -1)
+
+
+def attention_aggregate(att: Attention, x: torch.Tensor) -> torch.Tensor:
+    """View-trailing stack (B, D, h, w, C, N) -> (B, D, h, w, C): the fp32 softmax over
+    views of the activations weights the views' sum."""
+    score = torch.softmax(attention_activation(att, x).to(torch.float32), dim=-1)
+    return torch.sum(score.to(x.dtype) * x, dim=-1)
+
+
+def attention_activation_2d(att: Attention2D, x: torch.Tensor) -> torch.Tensor:
+    """2D variant over (B, H, W, C, N) stacks (reference network.py:411-478): two 2D convs
+    with relu, one per weight."""
+    B, H, W, C, N = x.shape
+    xv = x.movedim(-1, 0).reshape(N * B, H, W, C)
+    unique = L.conv(xv, att.weight_unique, relu=True).reshape(N, B, H, W, C)
+    shared = L.conv(xv, att.weight_shared, relu=True).reshape(N, B, H, W, C)
+    return (unique - shared + shared.sum(dim=0, keepdim=True)).movedim(0, -1)
 
 
 def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
@@ -53,12 +105,7 @@ def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
     With a `group`, x holds this rank's views and the result is over the group's views.
     With a depth `split`, D holds this rank's planes.
     """
-    N, B, C = x.shape[0], x.shape[1], x.shape[-1]
-    xv = x.reshape((N * B,) + x.shape[2:])
-    # [unique | shared] stacked on the output-channel axis: one conv for both
-    w_cat = torch.cat([att.weight_unique, att.weight_shared], dim=0)
-    both = L.conv(xv, w_cat, relu=True, split=split).reshape(x.shape[:-1] + (2 * C,))
-    unique, shared = both[..., :C], both[..., C:]
+    unique, shared = _unique_shared(att, x, split)
     if group is None:
         act = (unique - shared + shared.sum(dim=0, keepdim=True)).to(torch.float32)
         score = torch.softmax(act, dim=0)

@@ -70,7 +70,8 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, -1)
 
 
-def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pads):
+def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pads,
+                 groups: int = 1):
     """Channel-last conv with explicit per-axis (beg, end) pads."""
     nd = x.ndim - 2
     xc = _channels_first(x)
@@ -80,7 +81,7 @@ def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pa
         xc = F.pad(xc, [p for lo, hi in reversed(pads) for p in (lo, hi)])
         padding = 0
     y = _CONV[nd](xc, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                  stride=stride, padding=padding, dilation=rate)
+                  stride=stride, padding=padding, dilation=rate, groups=groups)
     return _channels_last(y)
 
 
@@ -256,6 +257,61 @@ def max_pool_same(x: torch.Tensor, pool: int, stride: int) -> torch.Tensor:
     pool_fn = {2: F.max_pool2d, 3: F.max_pool3d}[nd]
     xc = F.pad(_channels_first(x), flat, value=-math.inf)
     return _channels_last(pool_fn(xc, pool, stride))
+
+
+def l2_pool_same(x: torch.Tensor, pool: int, stride: int) -> torch.Tensor:
+    """sqrt(avg_pool_same(x^2)) (reference network.py:673-680)."""
+    return torch.sqrt(avg_pool_same(x.square(), pool, stride))
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+          relu: bool = True) -> torch.Tensor:
+    """Fully connected layer over the last axis (reference 'fc', network.py:709-716). w is
+    (in, out), as the JAX package holds it: params.py copies 2D arrays unchanged."""
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return activate(y) if relu else y
+
+
+def dropout(x: torch.Tensor, keep_prob: float = 0.9, training: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout (reference network.py:752-763): each element is kept with
+    probability keep_prob and scaled by 1 / keep_prob. The identity at inference or for
+    keep_prob >= 1. The mask is drawn from `generator` (on x's device), or from torch's
+    default generator when it is None."""
+    if not training or keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0).to(x.dtype)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """Unit norm along dim (reference 'l2norm', network.py:765-767): x * rsqrt(max(sum x^2,
+    eps)) in fp32, cast back. F.normalize clamps the norm instead of its square, which
+    differs for vectors shorter than sqrt(eps)."""
+    xf = x.to(torch.float32)
+    sq = xf.square().sum(dim=dim, keepdim=True)
+    return (xf * torch.rsqrt(torch.clamp(sq, min=eps))).to(x.dtype)
+
+
+def split_separable_conv2d(x: torch.Tensor, depthwise_w: torch.Tensor,
+                           pointwise_w: torch.Tensor,
+                           depthwise_b: Optional[torch.Tensor] = None,
+                           pointwise_b: Optional[torch.Tensor] = None,
+                           rate: int = 1) -> torch.Tensor:
+    """Depthwise conv -> relu -> 1x1 pointwise conv -> relu (reference
+    network.py:218-268; slim adds a bias and a relu to both halves), TF-SAME, the
+    depthwise conv dilated by `rate`.
+
+    depthwise_w: (1, C, kh, kw), the TF depthwise kernel (kh, kw, C, 1) through
+    tf_to_torch; it runs as the grouped conv kernel (C, 1, kh, kw). pointwise_w:
+    (Cout, C, 1, 1).
+    """
+    C = x.shape[-1]
+    pads = [_same_pads(s, k, 1, rate) for s, k in zip(x.shape[1:-1], depthwise_w.shape[2:])]
+    y = _padded_conv(x, depthwise_w.transpose(0, 1), depthwise_b, 1, rate, pads, groups=C)
+    return conv(activate(y), pointwise_w, pointwise_b, relu=True)
 
 
 def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,

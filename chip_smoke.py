@@ -92,7 +92,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 cuDNN) in turns with the unquantized forward: median seconds of 5, peak
                 memory, |depth - unquantized depth| mean and max in sweep units; and at
                 the same size on a rendered scene, the depth moved and its error against
-                the ground truth
+                the ground truth. A second card-against-CPU line runs bench.py's default
+                mode, bf16 with int8s links and int8 warps, at the same bounds
  17. depth      the 'depth' mesh axis (parallel.depth): (a) the flagship forward on a
                 depth=2 mesh, 2 ranks sharing cuda:0 over gloo, and on (1, 2, 2), 4 ranks
                 each held to SHARED4_MEMORY_FRACTION of the card, against one process within
@@ -102,6 +103,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 backward on depth=2 against one process (loss rtol 1e-4, gradients 5e-3),
                 4 and 4 launches of the two depth-split kernels per rank; (d) the flagship
                 fp32 train step, remat on, on depth=2: seconds and peak memory per rank
+ 18. helpers    the JAX package's public helpers that no path calls (camera_center,
+                depth_range_from_cams, homography_warp, build_cost_volume, the view-trailing
+                and 2D AAM forms, aam_aggregate, cost_volume_aggregation, l2_pool_same,
+                dense, l2_normalize, split_separable_conv2d), each on the card against the
+                same call on the CPU (HELPER_REL; homography_warp's mask equal); dropout by
+                its statistics; StageTimer; device_trace's trace of a CUDA block
 The kernel phase also holds the depth-split entry points (the partial forward, its own
 kernel on a grid of pixel tiles x chunks of D whose chunks form a thread-block cluster;
 the stats-fed backward: the gradient kernel at the slice's offset) against their plain
@@ -115,7 +122,7 @@ Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
 nothing of JAX or of atvsnet_tpu. `--only kernels native fusion eval train parallel quant
-depth` runs just those phases after device and build (kernels: every kernel check and
+depth helpers` runs just those phases after device and build (kernels: every kernel check and
 kernel timing above, no model; depth with the depth-split kernels' checks and times): a
 short run while working on one of them, which exits 1 and prints no kernels line and no ok
 line. `--only kernels --baseline DIR` also times DIR's kernels (another checkout, say the
@@ -142,6 +149,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import atvsnet_torch.geometry as geometry
 from atvsnet_torch import native
 from atvsnet_torch.cli import train as train_cli
 from atvsnet_torch.cli.eval_pointcloud import run_eval_pc
@@ -157,20 +165,24 @@ from atvsnet_torch.eval.errors import calc_error
 from atvsnet_torch.fusion import consistency as fusion
 from atvsnet_torch.fusion.fuse import fuse_scene, load_scene, probability_filter
 from atvsnet_torch.fusion.ply import read_ply, write_ply
-from atvsnet_torch.geometry.cameras import scale_camera_np
+from atvsnet_torch.geometry.cameras import camera_center, scale_camera_np
 from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
                                           refine_pairs_batched, sweep_to_depth)
 from atvsnet_torch.geometry.depth_regression import prob2depth, prob2depth_upsample
 from atvsnet_torch.models.train import (init_train_state, loss_and_grads, make_optimizer,
                                         sharded_train_step, train_step)
-from atvsnet_torch.models.tvsnet import (aam_aggregate_stacked, aam_output_conv, extract_features,
-                                         init_model, prepare_inputs, refinement, tvsnet_base)
+from atvsnet_torch.models.tvsnet import (aam_aggregate, aam_aggregate_stacked, aam_output_conv,
+                                         build_cost_volume, cost_volume_aggregation,
+                                         extract_features, init_model, prepare_inputs,
+                                         refinement, tvsnet_base)
+from atvsnet_torch.nn import aam
 from atvsnet_torch.nn import layers as L
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
 from atvsnet_torch.parallel.mesh import auto_mesh_shape, make_mesh
 from atvsnet_torch.parallel.pipeline import sharded_forward
 from atvsnet_torch.serving import DepthEstimator
+from atvsnet_torch.utils.profiling import StageTimer, device_trace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPHERES = os.path.join(ROOT, "artifacts", "trained_demo", "spheres_params.npz")
@@ -300,6 +312,19 @@ QUANT_MODES = {"act int8": dict(act_quant="int8"), "act int8s": dict(act_quant="
                "act int8s + warp int8": dict(act_quant="int8s", warp_quant="int8")}
 QUANT_ROUNDS = 5
 QUANT_MEAN_DIFF, QUANT_MAX_DIFF = 2e-3, 1e-2
+# bench.py's default mode, bf16 with int8s links and int8 warps, on the card against the CPU
+# at the same size and bounds (tests/test_torch_quant_bf16.py holds it against JAX)
+QUANT_BF16_MODES = {"act int8s + warp int8, bf16": dict(act_quant="int8s", warp_quant="int8",
+                                                          compute_dtype="bfloat16")}
+# The helpers phase: the JAX package's public helpers that no path calls, each on the card
+# against the same call on the CPU. fp32 with TF32 off, so they differ only in the order
+# of sums: the CPU tests' bound against JAX, 1e-5 of max(1, the largest value); the
+# homography_warp mask equal everywhere (an off-axis homography keeps samples off the
+# pixel lattice). Dropout draws from each device's own generator: it is held by its
+# statistics (the kept share within 5 standard deviations of keep_prob).
+HELPER_REL = 1e-5
+HELPER_SIZE = dict(view_num=3, max_d=8, max_h=32, max_w=32)
+HELPER_TRACE_BLOCKS = 50
 # The depth phase. Launches of the depth-split kernels per depth rank of the flagship
 # forward on a depth mesh (the parallel.pipeline forward: 1 per own pair in stage 1, AAM1's,
 # the native final depth's at the native slice; the 4 row tiles), and per training loss
@@ -1875,20 +1900,22 @@ def phase_quant():
     small = PipelineConfig(view_num=3, max_d=32, max_h=64, max_w=96)
     scene = render_multiplane_scene(view_num=3, H=64, W=96, D=32, seed=11, num_spheres=2)
     models = {dev: load_model(SPHERES, small, device=dev) for dev in ("cuda", "cpu")}
-    vs_cpu, ok_small = {}, True
-    for name, kw in QUANT_MODES.items():
-        got = {dev: multi_view_forward(m, scene["images"], scene["cams"], small.replace(**kw))
-               ["depth"].float().cpu() for dev, m in models.items()}
-        d = (got["cuda"] - got["cpu"]).abs()
-        vs_cpu[name] = {"mean_abs": float(d.mean()), "max_abs": float(d.max())}
-        ok_small = (ok_small and bool(torch.isfinite(got["cuda"]).all())
-                    and vs_cpu[name]["mean_abs"] <= QUANT_MEAN_DIFF
-                    and vs_cpu[name]["max_abs"] <= QUANT_MAX_DIFF)
-    emit(phase="quant", part="the card against the CPU", view_num=3, size=[64, 96], max_d=32,
-         scene="render_multiplane_scene(seed=11, num_spheres=2)", modes=vs_cpu,
-         mean_bound=QUANT_MEAN_DIFF, max_bound=QUANT_MAX_DIFF, ok=ok_small)
-    if not ok_small:
-        raise AssertionError("quant: the card's quantized forward is not the CPU's")
+    for part, modes in (("the card against the CPU", QUANT_MODES),
+                        ("the card against the CPU, bf16", QUANT_BF16_MODES)):
+        vs_cpu, ok_small = {}, True
+        for name, kw in modes.items():
+            got = {dev: multi_view_forward(m, scene["images"], scene["cams"], small.replace(**kw))
+                   ["depth"].float().cpu() for dev, m in models.items()}
+            d = (got["cuda"] - got["cpu"]).abs()
+            vs_cpu[name] = {"mean_abs": float(d.mean()), "max_abs": float(d.max())}
+            ok_small = (ok_small and bool(torch.isfinite(got["cuda"]).all())
+                        and vs_cpu[name]["mean_abs"] <= QUANT_MEAN_DIFF
+                        and vs_cpu[name]["max_abs"] <= QUANT_MAX_DIFF)
+        emit(phase="quant", part=part, view_num=3, size=[64, 96], max_d=32,
+             scene="render_multiplane_scene(seed=11, num_spheres=2)", modes=vs_cpu,
+             mean_bound=QUANT_MEAN_DIFF, max_bound=QUANT_MAX_DIFF, ok=ok_small)
+        if not ok_small:
+            raise AssertionError(f"quant: {part}: the card's quantized forward is not the CPU's")
     del models
     cfg = PipelineConfig()
     images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
@@ -1947,6 +1974,118 @@ def phase_quant():
          jax_probe_mean_for_comparison=0.0022, ok=ok)
     if not ok:
         raise AssertionError("quant: a quantized flagship forward is not finite")
+
+
+# ---- the helpers phase ----
+
+def helper_outputs(device: str) -> dict:
+    """Every public helper that no path calls, on numpy-seeded inputs on `device`: {name:
+    tensor or tuple of tensors}."""
+    rng = np.random.RandomState(0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    _, cams = synthetic_scene(view_num=3, H=32, W=32, D=8, seed=1)
+    cams = t(cams)
+    img = t(rng.rand(2, 24, 32, 3))
+    # a rotation, a shear and a perspective row: no sample lands on the pixel lattice
+    hom = t(np.array([[0.97, 0.06, 0.83], [-0.04, 1.03, -0.61], [1.1e-3, -1.7e-3, 1.0]])[None]
+            + 0.01 * rng.randn(2, 3, 3) * np.array([[1, 1, 10], [1, 1, 10], [0.01, 0.01, 0]]))
+    x = t(rng.randn(2, 9, 10, 3))
+    cfg = PipelineConfig(**HELPER_SIZE)
+    model = init_model(cfg, seed=0, device=device)
+    C = cfg.crm_base_filter
+    att2d = aam.Attention2D(4, generator=torch.Generator().manual_seed(1)).to(device)
+    feats = t(rng.rand(2, 1, 8, 8, 4))
+    trailing = t(rng.randn(1, 8, 8, 8, C, 2))            # (B, D, h, w, C, P)
+    ds, di = geometry.depth_range_from_cams(cams)
+    return {
+        "camera_center": camera_center(cams),
+        "depth_range_from_cams": (ds, di),
+        "homography_warp bilinear": geometry.homography_warp(img, hom, output_mask=True),
+        "homography_warp nearest": geometry.homography_warp(img, hom, "nearest", output_mask=True),
+        "build_cost_volume": build_cost_volume(feats[0], feats[1], cams[:, 0], cams[:, 1], cfg,
+                                               ds, di),
+        "build_cost_volume warp_ref": build_cost_volume(feats[0], feats[1], cams[:, 0],
+                                                        cams[:, 1], cfg, ds, di, warp_ref=True),
+        "attention_activation": aam.attention_activation(model.aam1_att, trailing),
+        "attention_aggregate": aam.attention_aggregate(model.aam1_att, trailing),
+        "attention_activation_2d": aam.attention_activation_2d(att2d, t(rng.randn(2, 10, 12, 4, 3))),
+        "aam_aggregate": aam_aggregate(model, trailing, 2),
+        "cost_volume_aggregation": cost_volume_aggregation(model, trailing, 1),
+        "cost_volume_aggregation keepchannel": cost_volume_aggregation(model, trailing, 2,
+                                                                       keepchannel=True),
+        "l2_pool_same": L.l2_pool_same(x, 3, 2),
+        "dense": L.dense(x, t(rng.randn(3, 5)), t(rng.randn(5))),
+        "l2_normalize": L.l2_normalize(x),
+        "split_separable_conv2d": L.split_separable_conv2d(
+            x, t(rng.randn(1, 3, 3, 3)), t(rng.randn(4, 3, 1, 1)), t(rng.randn(3)),
+            t(rng.randn(4)), rate=2),
+    }
+
+
+def phase_helpers():
+    """The helpers on the card against the same calls on the CPU (HELPER_REL), dropout by
+    its statistics, StageTimer, and device_trace's trace of a CUDA block."""
+    t0 = time.perf_counter()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        got, want = helper_outputs("cuda"), helper_outputs("cpu")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    rows, masks, ok = {}, {}, True
+    for name, ref in want.items():
+        outs = got[name] if isinstance(ref, tuple) else (got[name],)
+        for i, (a, b) in enumerate(zip(outs, ref if isinstance(ref, tuple) else (ref,))):
+            a, key = a.cpu(), name if i == 0 else f"{name} [{i}]"
+            if b.dtype == torch.bool:
+                masks[name] = float((a == b).float().mean())
+                ok = ok and masks[name] == 1.0
+                continue
+            err = float((a.float() - b.float()).abs().max())
+            rows[key] = {"max_abs": err, "bound": HELPER_REL * max(1.0, float(b.abs().max()))}
+            ok = (ok and a.shape == b.shape and bool(torch.isfinite(a).all())
+                  and err <= rows[key]["bound"])
+    # dropout: kept share against keep_prob, the kept values x / keep_prob, the same mask
+    # from the same seed, the identity at inference
+    keep = 0.7
+    x = torch.rand(256, 256, device="cuda", generator=torch.Generator("cuda").manual_seed(3)) + 0.5
+    drops = [L.dropout(x, keep, True, torch.Generator("cuda").manual_seed(4)) for _ in range(2)]
+    share = float((drops[0] != 0).float().mean())
+    sigma = math.sqrt(keep * (1 - keep) / x.numel())
+    kept = drops[0] != 0
+    dropout = {"kept_share": share, "keep_prob": keep, "bound": 5 * sigma,
+               "kept_values_err": float((drops[0][kept] - x[kept] / keep).abs().max()),
+               "same_seed_same_mask": bool(torch.equal(drops[0], drops[1])),
+               "identity_at_inference": L.dropout(x, keep, training=False) is x}
+    ok = (ok and abs(share - keep) <= 5 * sigma and dropout["kept_values_err"] <= 1e-6
+          and dropout["same_seed_same_mask"] and dropout["identity_at_inference"])
+    # StageTimer and device_trace around a CUDA block of HELPER_TRACE_BLOCKS matmuls, each
+    # ending on the host. In a process that has launched many kernels the profiler drops
+    # the first few kernel records of a session (a block of one matmul then showed none),
+    # so the block is long enough that every trace still holds kernel events.
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory() as logdir:
+        for _ in range(2):
+            with timer.stage("matmul"), device_trace(logdir):
+                for _ in range(HELPER_TRACE_BLOCKS):
+                    (x @ x).sum().item()
+        with device_trace(""):
+            pass
+        kernels = []
+        for path in sorted(glob.glob(os.path.join(logdir, "*.json"))):
+            with open(path) as f:
+                kernels.append(sum(1 for e in json.load(f)["traceEvents"]
+                                   if e.get("cat") == "kernel"))
+    summary = timer.summary()
+    ok = ok and len(kernels) == 2 and min(kernels) > 0 and summary["matmul"]["count"] == 2
+    emit(phase="helpers", card_against_cpu=rows, mask_agreement=masks, dropout=dropout,
+         stage_timer=summary, device_trace={"blocks_per_trace": HELPER_TRACE_BLOCKS,
+                                            "cuda_kernel_events_per_trace": kernels},
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("helpers: a helper on the card is not the CPU's")
 
 
 # ---- the depth phase ----
@@ -2415,7 +2554,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
                     choices=["kernels", "native", "fusion", "eval", "train", "parallel", "quant",
-                             "depth"],
+                             "depth", "helpers"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
@@ -2446,7 +2585,7 @@ def main() -> int:
         for phase in args.only:
             {"kernels": kernels, "native": phase_native, "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
-             "quant": phase_quant,
+             "quant": phase_quant, "helpers": phase_helpers,
              "depth": lambda: (phase_kernel_split(), phase_timing_split(kind), phase_depth())
              }[phase]()
         print(smi, flush=True)
@@ -2482,6 +2621,8 @@ def main() -> int:
     phase_quant()
     torch.cuda.empty_cache()
     depth_launches = phase_depth()
+    torch.cuda.empty_cache()
+    phase_helpers()
 
     print(smi, flush=True)
     # launches: the flagship forward's, the eval path's, the train CLI run's and the parallel
