@@ -4,7 +4,7 @@ reference atvsnet/eval_pointcloud.py).
     python -m atvsnet_torch.cli.eval_pointcloud --data_root ../data --savepath ./eval_out \
         [--scenes lakeside sand_box ...] [--params model.npz] [--view_num 8] \
         [--batch 1] [--mesh data=2,view=4] [--gt_range] [--device cpu] \
-        [--act-quant none|int8|int8s] [--warp-quant none|int8]
+        [--act-quant none|int8|int8s|int8mxu] [--warp-quant none|int8]
 
 Per scene: parse pair.txt, per reference image run the N-view forward, write %08d.pfm
 depth, %08d_prob.pfm confidence, ref jpg + cam txt, a viridis png, and zz_runtime.txt.
@@ -36,8 +36,9 @@ returns on every rank once all of them are written. run_eval_pc also takes a bui
 parallel.mesh.Mesh, a 3-axis one with 'depth' too; then depth rank 0 writes.
 
 --act-quant / --warp-quant store the volume links / the warped feature volumes on int8
-lattices (PipelineConfig.act_quant, warp_quant; inference only). The default, none, is
-the exact path.
+lattices (PipelineConfig.act_quant, warp_quant; inference only); --act-quant int8mxu also
+runs the volume convs that read such links on int8 operands. The default, none, is the
+exact path.
 """
 
 from __future__ import annotations
@@ -359,8 +360,8 @@ def run_eval_pc(
 
 
 def _quant_mode(field: str):
-    """An argparse type that refuses what PipelineConfig refuses, with its message
-    (act_quant="int8mxu" among them, before argparse's list of choices)."""
+    """An argparse type that refuses what PipelineConfig refuses, with its message (before
+    argparse's list of choices)."""
 
     def parse(value: str) -> str:
         try:
@@ -402,8 +403,9 @@ def main() -> None:
     ap.add_argument("--act-quant", default="none", type=_quant_mode("act_quant"),
                     choices=list(ACT_QUANT_MODES),
                     help="int8 storage of the volume links (PipelineConfig.act_quant; "
-                         "inference only): int8 a per-tensor scale, int8s a static one. "
-                         "Default none = the exact path")
+                         "inference only): int8 a per-tensor scale, int8s a static one, "
+                         "int8mxu int8s plus the volume convs on int8 operands (a CUDA "
+                         "kernel on the tensor cores). Default none = the exact path")
     ap.add_argument("--warp-quant", default="none", type=_quant_mode("warp_quant"),
                     choices=list(WARP_QUANT_MODES),
                     help="int8 storage for the warped feature volumes "

@@ -1,14 +1,14 @@
 """Typed configuration for the whole pipeline and for training (the port of
 atvsnet_tpu/config.py).
 
-Same fields and validation as atvsnet_tpu.config.PipelineConfig, minus the knobs that
-only mean something on a TPU: fp32_precision (the MXU's pass count), scoped_vmem_kib (the
-Pallas kernel's VMEM budget) and act_quant="int8mxu" (int8 convolutions on the MXU). The
-storage quantization (act_quant none|int8|int8s, act_quant_range, warp_quant none|int8) is
-ported: the JAX package reads it from a trace-scoped policy (atvsnet_tpu/numerics.py), the
-port passes it down explicitly (nn.layers.ActQuant, geometry.warp.plane_sweep_warp). The
-port runs true fp32 for compute_dtype="float32": TF32 is off for both matmuls and cuDNN
-convolutions (models.tvsnet.prepare_inputs).
+Same fields and validation as atvsnet_tpu.config.PipelineConfig, minus two knobs that
+only mean something on a TPU: fp32_precision (the MXU's pass count) and scoped_vmem_kib
+(the Pallas kernel's VMEM budget). The quantization (act_quant none|int8|int8s|int8mxu,
+act_quant_range, warp_quant none|int8) is ported: the JAX package reads it from a
+trace-scoped policy (atvsnet_tpu/numerics.py), the port passes it down explicitly
+(nn.layers.ActQuant, geometry.warp.plane_sweep_warp); int8mxu's int8 convolutions run on
+a CUDA kernel (ops.int8_conv). The port runs true fp32 for compute_dtype="float32": TF32
+is off for both matmuls and cuDNN convolutions (models.tvsnet.prepare_inputs).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SOFTARGMIN_IMPLS = ("auto", "cuda", "torch")
-ACT_QUANT_MODES = ("none", "int8", "int8s")
+ACT_QUANT_MODES = ("none", "int8", "int8s", "int8mxu")
 WARP_QUANT_MODES = ("none", "int8")
 
 
@@ -65,8 +65,10 @@ class PipelineConfig:
     # sets it). act_quant round-trips every 5D volume link (the conv_bn / deconv_bn /
     # conv3d_mixed_bn outputs) through an int8 lattice: "int8" with a per-tensor max-abs
     # scale, "int8s" with the static scale act_quant_range / 255 (relu links, uint8) or
-    # / 127 (signed links). warp_quant="int8" stores the bilinear plane-sweep volumes on a
-    # per-(sample, channel) int8 lattice scaled by the source map's max.
+    # / 127 (signed links); "int8mxu" stores as int8s and runs the volume convs whose input
+    # is such a link (qin) on int8 operands with int32 sums. warp_quant="int8" stores the
+    # bilinear plane-sweep volumes on a per-(sample, channel) int8 lattice scaled by the
+    # source map's max.
     act_quant: str = "none"
     act_quant_range: float = 6.0
     warp_quant: str = "none"
@@ -98,10 +100,6 @@ class PipelineConfig:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(_DTYPES)}, got {self.compute_dtype!r}"
             )
-        if self.act_quant == "int8mxu":
-            raise ValueError(
-                "act_quant='int8mxu' is the TPU MXU's int8 convolution path and is not "
-                f"ported; expected one of {'|'.join(ACT_QUANT_MODES)}")
         if self.act_quant not in ACT_QUANT_MODES:
             raise ValueError(
                 f"act_quant={self.act_quant!r}: expected one of {'|'.join(ACT_QUANT_MODES)}")

@@ -4,8 +4,9 @@
 mirror the JAX tree (fem/conv0_0/w is fem.conv0_0.w). The functions here take it in
 the place of the JAX package's params dict.
 
-The config's storage quantization reaches the volume ops from here (act_quant as an
-nn.layers.ActQuant, warp_quant as plane_sweep_warp's quant). A depth `split`
+The config's quantization reaches the volume ops from here (act_quant as an
+nn.layers.ActQuant, warp_quant as plane_sweep_warp's quant); the AAM functions take the
+ActQuant from their caller. A depth `split`
 (parallel.depth.DepthSplit) makes every volume this rank's block of planes: the sweeps
 warp those planes only, at their global sweep values, while everything plane-indexed
 (homographies, sweep values, the geometric denominator depth_interval * D, the visual
@@ -275,33 +276,38 @@ def tvsnet_refine(model: ATVSNet, depth_ref, depth_view, prob_vol, filtered_cost
 
 
 def aam_aggregate_stacked(model: ATVSNet, cost_volumes: torch.Tensor, stage: int,
-                          group: Optional[dist.ProcessGroup] = None, split=None) -> torch.Tensor:
+                          group: Optional[dist.ProcessGroup] = None, split=None,
+                          quant: Optional[ActQuant] = None) -> torch.Tensor:
     """AAM over the view-leading (P, B, D, h, w, C) stack; stage 1 = AAM1, 2 = AAM2. With a
     'view' group, the stack holds this rank's pairs and AAM runs over the group's; with a
-    depth split, D holds this rank's planes."""
+    depth split, D holds this rank's planes. quant: ActQuant.of(cfg), whose "int8mxu" runs
+    the AAM's conv on int8 operands."""
     return attention_aggregate_stacked(model.aam1_att if stage == 1 else model.aam2_att,
-                                       cost_volumes, group, split)
+                                       cost_volumes, group, split, quant)
 
 
 def aam_output_conv(model: ATVSNet, agg_cost: torch.Tensor, stage: int,
-                    split=None) -> torch.Tensor:
+                    split=None, quant: Optional[ActQuant] = None) -> torch.Tensor:
     if stage == 1:
-        return output_conv(model.aam1_out, "attention_prob_vol", agg_cost, split)
-    return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost, split)
+        return output_conv(model.aam1_out, "attention_prob_vol", agg_cost, split, quant)
+    return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost, split, quant)
 
 
-def aam_aggregate(model: ATVSNet, cost_volumes: torch.Tensor, stage: int) -> torch.Tensor:
+def aam_aggregate(model: ATVSNet, cost_volumes: torch.Tensor, stage: int,
+                  quant: Optional[ActQuant] = None) -> torch.Tensor:
     """AAM over the view-trailing (B, D, h, w, C, P) per-pair volumes -> (B, D, h, w, C);
     stage 1 = AAM1, 2 = AAM2 (reference model.py:445-468)."""
-    return attention_aggregate(model.aam1_att if stage == 1 else model.aam2_att, cost_volumes)
+    return attention_aggregate(model.aam1_att if stage == 1 else model.aam2_att, cost_volumes,
+                               quant)
 
 
 def cost_volume_aggregation(model: ATVSNet, cost_volumes: torch.Tensor, stage: int = 1,
-                            keepchannel: bool = False) -> torch.Tensor:
+                            keepchannel: bool = False,
+                            quant: Optional[ActQuant] = None) -> torch.Tensor:
     """aam_aggregate, then (unless keepchannel) the stage's 1-channel output conv:
     (B, D, h, w, C) with keepchannel, else (B, D, h, w) (reference model.py:445-468)."""
-    agg = aam_aggregate(model, cost_volumes, stage)
-    return agg if keepchannel else aam_output_conv(model, agg, stage)
+    agg = aam_aggregate(model, cost_volumes, stage, quant)
+    return agg if keepchannel else aam_output_conv(model, agg, stage, quant=quant)
 
 
 @torch.no_grad()

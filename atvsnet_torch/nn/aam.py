@@ -15,6 +15,10 @@ through torch.distributed.nn's all-reduce, whose backward all-reduces the gradie
 With the D planes split over a 'depth' group (parallel.depth), the two 3x3x3 convs
 exchange halos; the softmax over views is per plane and needs no collective over D.
 
+`quant` (nn.layers.ActQuant): under "int8mxu" the [unique | shared] conv and the output
+conv run on int8 operands (qin, as in the JAX package): their inputs are the CRM's or the
+refinement's output volumes, sums of two stored links, and the softmax-convex mix of them.
+
 The pipeline aggregates the view-leading stack (attention_aggregate_stacked). The
 view-trailing (B, D, h, w, C, N) forms (attention_activation, attention_aggregate) and
 the 2D variant (Attention2D, attention_activation_2d) are the JAX package's public
@@ -62,28 +66,32 @@ class OutputConv(tnn.Module):
         self.add_module(name, L.Conv(3, channels, 1, nd=3, generator=generator))
 
 
-def _unique_shared(att: Attention, x: torch.Tensor, split=None):
+def _unique_shared(att: Attention, x: torch.Tensor, split=None,
+                   quant: Optional[L.ActQuant] = None):
     """relu(conv3d(x_i, W_unique)) and relu(conv3d(x_i, W_shared)) of every view of the
     view-leading stack x (N, B, D, h, w, C), each shaped as x."""
     N, B, C = x.shape[0], x.shape[1], x.shape[-1]
     xv = x.reshape((N * B,) + x.shape[2:])
     # [unique | shared] stacked on the output-channel axis: one conv for both
     w_cat = torch.cat([att.weight_unique, att.weight_shared], dim=0)
-    both = L.conv(xv, w_cat, relu=True, split=split).reshape(x.shape[:-1] + (2 * C,))
+    both = L.conv(xv, w_cat, relu=True, split=split, quant=quant, qin=True)
+    both = both.reshape(x.shape[:-1] + (2 * C,))
     return both[..., :C], both[..., C:]
 
 
-def attention_activation(att: Attention, x: torch.Tensor) -> torch.Tensor:
+def attention_activation(att: Attention, x: torch.Tensor,
+                         quant: Optional[L.ActQuant] = None) -> torch.Tensor:
     """View-trailing stack (B, D, h, w, C, N) -> the per-view activations a_i, (B, D, h, w,
     C, N)."""
-    unique, shared = _unique_shared(att, x.movedim(-1, 0))
+    unique, shared = _unique_shared(att, x.movedim(-1, 0), quant=quant)
     return (unique - shared + shared.sum(dim=0, keepdim=True)).movedim(0, -1)
 
 
-def attention_aggregate(att: Attention, x: torch.Tensor) -> torch.Tensor:
+def attention_aggregate(att: Attention, x: torch.Tensor,
+                        quant: Optional[L.ActQuant] = None) -> torch.Tensor:
     """View-trailing stack (B, D, h, w, C, N) -> (B, D, h, w, C): the fp32 softmax over
     views of the activations weights the views' sum."""
-    score = torch.softmax(attention_activation(att, x).to(torch.float32), dim=-1)
+    score = torch.softmax(attention_activation(att, x, quant).to(torch.float32), dim=-1)
     return torch.sum(score.to(x.dtype) * x, dim=-1)
 
 
@@ -99,13 +107,13 @@ def attention_activation_2d(att: Attention2D, x: torch.Tensor) -> torch.Tensor:
 
 def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
                                 group: Optional[dist.ProcessGroup] = None,
-                                split=None) -> torch.Tensor:
+                                split=None, quant: Optional[L.ActQuant] = None) -> torch.Tensor:
     """View-leading stack (N, B, D, h, w, C) -> (B, D, h, w, C).
 
     With a `group`, x holds this rank's views and the result is over the group's views.
     With a depth `split`, D holds this rank's planes.
     """
-    unique, shared = _unique_shared(att, x, split)
+    unique, shared = _unique_shared(att, x, split, quant)
     if group is None:
         act = (unique - shared + shared.sum(dim=0, keepdim=True)).to(torch.float32)
         score = torch.softmax(act, dim=0)
@@ -123,6 +131,7 @@ def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
 
 
 def output_conv(module: OutputConv, name: str, cost_volume: torch.Tensor,
-                split=None) -> torch.Tensor:
+                split=None, quant: Optional[L.ActQuant] = None) -> torch.Tensor:
     """(B, D, h, w, C) -> (B, D, h, w)."""
-    return L.conv(cost_volume, getattr(module, name).w, split=split)[..., 0]
+    return L.conv(cost_volume, getattr(module, name).w, split=split, quant=quant,
+                  qin=True)[..., 0]

@@ -57,13 +57,16 @@ class CRM(tnn.Module):
         half enters the two input convs as 2D convs (layers.conv3d_mixed).
 
         quant: every conv_bn / deconv_bn link is stored on an int8 lattice (the mixed
-        entry convs too, as the JAX package's closure quantizes them). split: D holds this
-        rank's planes of a 'depth' mesh axis (parallel.depth), at every level.
+        entry convs too, as the JAX package's closure quantizes them). Under "int8mxu" the
+        trunk convs and the prob conv run on int8 operands (qin, as in the JAX package):
+        their inputs are stored links or sums of two or three of them; only the two block-0
+        entry convs see the raw cost volume. split: D holds this rank's planes of a 'depth'
+        mesh axis (parallel.depth), at every level.
         """
 
-        def cbn(name, x, stride=1):
+        def cbn(name, x, stride=1, qin=True):
             return L.conv_bn(x, getattr(self, name).w, stride=stride, eps=eps, quant=quant,
-                             split=split)
+                             split=split, qin=qin)
 
         def dbn(name, x):
             return L.deconv_bn(x, getattr(self, name).w, stride=2, eps=eps, quant=quant,
@@ -84,8 +87,8 @@ class CRM(tnn.Module):
             b0_1_0 = mixed("conv_b0_1_0", 2)
             b0_0_1 = mixed("conv_b0_0_1", 1)
         else:
-            b0_1_0 = cbn("conv_b0_1_0", cost_volume, 2)
-            b0_0_1 = cbn("conv_b0_0_1", cost_volume)
+            b0_1_0 = cbn("conv_b0_1_0", cost_volume, 2, qin=False)
+            b0_0_1 = cbn("conv_b0_0_1", cost_volume, qin=False)
         b0_2_0 = cbn("conv_b0_2_0", b0_1_0, 2)
         b0_3_0 = cbn("conv_b0_3_0", b0_2_0, 2)
         b0_1_1 = cbn("conv_b0_1_1", b0_1_0)
@@ -124,4 +127,5 @@ class CRM(tnn.Module):
 
         if self.conv_b2_6_2 is None:
             return b2_6_1, None
-        return b2_6_1, L.conv(b2_6_1, self.conv_b2_6_2.w, split=split)[..., 0]  # no relu, no bias
+        prob = L.conv(b2_6_1, self.conv_b2_6_2.w, split=split, quant=quant, qin=True)
+        return b2_6_1, prob[..., 0]  # no relu, no bias

@@ -20,14 +20,15 @@ Weights are stored in PyTorch's layout: conv (out, in, k...), transpose conv
 Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
   * quant (ActQuant, PipelineConfig.act_quant): every volume conv_bn / deconv_bn /
     conv3d_mixed_bn output round-trips through an int8 lattice (`quantize_act`, the JAX
-    package's _maybe_quant_act);
+    package's _maybe_quant_act). Under "int8mxu" the volume convs that the caller marks
+    `qin=True` also run on int8 operands with int32 sums (`quant_conv_operands`, then
+    ops.int8_conv.conv3d_int8: a CUDA kernel on the tensor cores for CUDA tensors);
   * split (parallel.depth.DepthSplit): the volume holds this rank's block of the D planes
     of a 'depth' mesh axis; convs and transposed convs exchange one halo plane with their
     neighbours, batch_stat_norm sums its statistics over the depth group.
 
-The TPU package's depth-tap decompositions of 3D convs and its int8 MXU convolutions
-(act_quant="int8mxu") are TPU layout work and are not ported: a 3D conv here is one
-cuDNN conv3d.
+The TPU package's depth-tap decompositions of 3D convs are TPU layout work and are not
+ported: a float 3D conv here is one cuDNN conv3d.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from typing import Optional
 import torch
 import torch.nn as tnn
 import torch.nn.functional as F
+
+from atvsnet_torch.ops.int8_conv import conv3d_int8
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
@@ -86,13 +89,21 @@ def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pa
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-         stride: int = 1, rate: int = 1, relu: bool = False, split=None) -> torch.Tensor:
+         stride: int = 1, rate: int = 1, relu: bool = False, split=None,
+         quant: Optional["ActQuant"] = None, qin: bool = False) -> torch.Tensor:
     """Rank-dispatching TF-SAME conv on channel-last x; w is (out, in, k...).
 
     split: x is this rank's block of D planes (a 5D volume, a k3 kernel, stride 1 or 2).
     TF-SAME pads D by (1, 1) at stride 1 and by (0, 1) at stride 2 on an even D, so the
     block takes one plane from each neighbour, or from its right one only, and zeros at
-    the global ends."""
+    the global ends.
+
+    qin ("quantized input ok"): the caller says that x is a stored lattice link, or a small
+    sum or convex mix of such links. Under quant.mode "int8mxu" such a conv of a 5D x with
+    a depth kernel of 3, no bias, rate 1 and stride 1 or 2 runs on int8 operands with int32
+    sums (quant_conv_operands), rescaled to x's dtype, where the JAX package does
+    (atvsnet_tpu/nn/layers.py:231-233). A split's halo comes first: the quantization is
+    elementwise, so a split and one process give the same bits. Ignored otherwise."""
     if split is not None and x.ndim == 5:
         if w.shape[2] != 3 or rate != 1 or stride not in (1, 2) or x.shape[1] % stride:
             raise ValueError(f"a depth-split conv needs a depth kernel of 3, rate 1 and "
@@ -102,7 +113,12 @@ def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         pads = [(0, 0)] + [_same_pads(s, k, stride) for s, k in zip(x.shape[2:-1], w.shape[3:])]
     else:
         pads = [_same_pads(s, k, stride, rate) for s, k in zip(x.shape[1:-1], w.shape[2:])]
-    y = _padded_conv(x, w, b, stride, rate, pads)
+    if (qin and quant is not None and quant.mode == "int8mxu" and b is None and x.ndim == 5
+            and w.shape[2] == 3 and rate == 1 and stride in (1, 2)):
+        xq, wq, scale = quant_conv_operands(x, w, quant.range)
+        y = conv3d_int8(xq.contiguous(), wq, stride, pads, scale, x.dtype)
+    else:
+        y = _padded_conv(x, w, b, stride, rate, pads)
     return activate(y) if relu else y
 
 
@@ -143,8 +159,9 @@ def batch_stat_norm(x: torch.Tensor, eps: float = 1e-3,
 
 @dataclasses.dataclass(frozen=True)
 class ActQuant:
-    """Storage quantization of the volume links (PipelineConfig.act_quant "int8" or
-    "int8s", and act_quant_range)."""
+    """Quantization of the volume links (PipelineConfig.act_quant "int8", "int8s" or
+    "int8mxu", and act_quant_range). "int8mxu" stores the links as "int8s" does and also
+    runs the qin volume convs on int8 operands (conv)."""
 
     mode: str
     range: float = 6.0
@@ -169,7 +186,8 @@ def quantize_act(y: torch.Tensor, quant: Optional[ActQuant], nonneg: bool = Fals
       int8   a dynamic per-tensor scale, max|y| / 127 + 1e-12 (over the depth group with
              a split), onto [-127, 127];
       int8s  a static scale: range / 255 onto [0, 255] for a relu link (nonneg), range /
-             127 onto [-127, 127] otherwise.
+             127 onto [-127, 127] otherwise;
+      int8mxu  the links as int8s.
 
     fp32 arithmetic with the scale as an fp32 scalar, as the JAX package's weakly typed
     Python floats give it, and round half to even in both: the same y gives the same bits.
@@ -184,20 +202,36 @@ def quantize_act(y: torch.Tensor, quant: Optional[ActQuant], nonneg: bool = Fals
             peak = split.all_max(peak)
         s = peak / _scalar(127.0, y.device) + 1e-12
         lo, hi = -127.0, 127.0
-    elif quant.mode == "int8s":
+    elif quant.mode in ("int8s", "int8mxu"):
         s = _scalar(quant.range / (255.0 if nonneg else 127.0), y.device)
         lo, hi = (0.0, 255.0) if nonneg else (-127.0, 127.0)
     else:
-        raise ValueError(f"act_quant={quant.mode!r}: expected int8 or int8s")
+        raise ValueError(f"act_quant={quant.mode!r}: expected int8, int8s or int8mxu")
     q = torch.clamp(torch.round(yf / s), lo, hi).to(torch.uint8 if lo == 0.0 else torch.int8)
     return (q.to(torch.float32) * s).to(y.dtype)
 
 
+def quant_conv_operands(x: torch.Tensor, w: torch.Tensor, range_: float):
+    """The int8 operands of an int8mxu conv (atvsnet_tpu/nn/layers.py:_quant_conv_operands):
+    x onto the signed +-range lattice, si = range / 127; w per tensor, sw = max|w| / 127 +
+    1e-12; both rounded half to even and clipped to [-127, 127]. Returns (xq int8, wq int8,
+    si * sw), the last an fp32 scalar tensor that turns the int32 sums back into x's scale.
+    fp32 arithmetic with fp32 scalar divisors, as in quantize_act: the same bits as JAX's."""
+    si = _scalar(range_ / 127.0, x.device)
+    xq = torch.clamp(torch.round(x.to(torch.float32) / si), -127.0, 127.0).to(torch.int8)
+    wf = w.to(torch.float32)
+    sw = wf.abs().amax() / _scalar(127.0, w.device) + 1e-12
+    wq = torch.clamp(torch.round(wf / sw), -127.0, 127.0).to(torch.int8)
+    return xq, wq, si * sw
+
+
 def conv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 1, rate: int = 1,
             relu: bool = True, eps: float = 1e-3, quant: Optional[ActQuant] = None,
-            split=None) -> torch.Tensor:
-    """conv -> batch_stat_norm -> relu (reference network.py:172-215) -> quantize_act."""
-    y = batch_stat_norm(conv(x, w, stride=stride, rate=rate, split=split), eps=eps, split=split)
+            split=None, qin: bool = False) -> torch.Tensor:
+    """conv -> batch_stat_norm -> relu (reference network.py:172-215) -> quantize_act; qin
+    as in conv."""
+    y = batch_stat_norm(conv(x, w, stride=stride, rate=rate, split=split, quant=quant, qin=qin),
+                        eps=eps, split=split)
     return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 
@@ -315,7 +349,8 @@ def split_separable_conv2d(x: torch.Tensor, depthwise_w: torch.Tensor,
 
 
 def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
-                 stride: int = 1, split=None) -> torch.Tensor:
+                 stride: int = 1, split=None, quant: Optional[ActQuant] = None,
+                 qin: bool = False) -> torch.Tensor:
     """conv3d over concat([varying, broadcast_D(const2d)], -1) without the broadcast.
 
     The D-constant channels reduce to 2D convs with the kernel summed over its depth
@@ -327,6 +362,9 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
     planes beside a seam between ranks take all three taps. The split path subtracts the
     missing tap's 2D conv where a mask over the planes says so, the same operations on
     every rank (see parallel.depth.DepthSplit.halo for why that matters).
+
+    quant and qin reach the varying half's conv (conv), as in the JAX package; no caller of
+    either package sets qin here.
     """
     if w.shape[2] != 3:
         raise ValueError("conv3d_mixed needs a depth kernel of 3")
@@ -335,7 +373,8 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
     if stride not in (1, 2) or D % stride:
         raise ValueError(f"conv3d_mixed supports stride 1, or 2 on even D; got {stride}, D={D}")
     wc = w[:, Cv:]
-    y = conv(varying, w[:, :Cv], stride=stride, split=split)   # (B, D', h', w', Cout)
+    y = conv(varying, w[:, :Cv], stride=stride, split=split, quant=quant,
+             qin=qin)                                            # (B, D', h', w', Cout)
 
     def conv2(taps):
         return conv(const2d, sum(wc[:, :, t] for t in taps), stride=stride)
@@ -360,9 +399,10 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
 
 def conv3d_mixed_bn(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
                     stride: int = 1, relu: bool = True, eps: float = 1e-3,
-                    quant: Optional[ActQuant] = None, split=None) -> torch.Tensor:
-    y = batch_stat_norm(conv3d_mixed(w, varying, const2d, stride=stride, split=split), eps=eps,
-                        split=split)
+                    quant: Optional[ActQuant] = None, split=None,
+                    qin: bool = False) -> torch.Tensor:
+    y = batch_stat_norm(conv3d_mixed(w, varying, const2d, stride=stride, split=split,
+                                     quant=quant, qin=qin), eps=eps, split=split)
     return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 

@@ -54,11 +54,14 @@ class RefineNet(tnn.Module):
             term is one channel broadcast to F in the reference, so the kernel collapses
             over those F in-channels.
         quant and split as in CRM.forward: every bn link, the four entries included, is
-        quantized (the JAX package quantizes its hand-written geo entry too).
+        quantized (the JAX package quantizes its hand-written geo entry too). Under
+        "int8mxu" the seven trunk convs and d_cost_vol run on int8 operands (qin): they
+        read the concat or sums of stored links; the four entries read the raw groups.
         """
 
-        def cbn(name, x, stride=1):
-            return L.conv_bn(x, self._w(name), stride=stride, eps=eps, quant=quant, split=split)
+        def cbn(name, x, stride=1, qin=True):
+            return L.conv_bn(x, self._w(name), stride=stride, eps=eps, quant=quant, split=split,
+                             qin=qin)
 
         def dbn(name, x):
             return L.deconv_bn(x, self._w(name), stride=2, eps=eps, quant=quant, split=split)
@@ -75,8 +78,8 @@ class RefineNet(tnn.Module):
         w_eff = torch.cat([w[:, 0:1], w[:, 1:1 + F].sum(dim=1, keepdim=True), w[:, 1 + F:]], dim=1)
         geo = mixed(w_eff, vary, const2d)
 
-        x = torch.cat([photo, geo, cbn("_prob_3dconv", prob_vol),
-                       cbn("_vishull_3dconv", vis_hull)], dim=-1)
+        x = torch.cat([photo, geo, cbn("_prob_3dconv", prob_vol, qin=False),
+                       cbn("_vishull_3dconv", vis_hull, qin=False)], dim=-1)
         c1_0 = cbn("_3dconv1_0", x, 2)
         c2_0 = cbn("_3dconv2_0", c1_0, 2)
         c3_0 = cbn("_3dconv3_0", c2_0, 2)
@@ -88,4 +91,4 @@ class RefineNet(tnn.Module):
         c5_0 = dbn("_3dconv5_0", c4_0 + c2_1)
         c6_0 = dbn("_3dconv6_0", c5_0 + c1_1)
         c6_1 = c6_0 + c0_1  # cost residual (B, D, h, w, f)
-        return c6_1, L.conv(c6_1, self._w("d_cost_vol"), split=split)[..., 0]
+        return c6_1, L.conv(c6_1, self._w("d_cost_vol"), split=split, quant=quant, qin=True)[..., 0]

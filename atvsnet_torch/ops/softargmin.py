@@ -48,22 +48,16 @@ tiles x chunks of D, the chunks of a tile one thread-block cluster) `partial_gri
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "softargmin.cu"
-BUILD_DIR = _PKG.parent / "build" / "atvsnet_torch"
+from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc_build  # noqa: F401
+
+SOURCE = CSRC / "softargmin.cu"
 LIBRARY = BUILD_DIR / "libatvsnet_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 PATHS = ("aligned", "scalar")
 ALIGNMENT = 16  # bytes: the aligned path's loads and stores
 
@@ -72,29 +66,13 @@ _lib_lock = threading.Lock()
 build_log = ""
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA soft-argmin kernel cannot be built")
-
-
 def build(force: bool = False) -> Path:
     """Compile csrc/softargmin.cu into LIBRARY unless an up-to-date build exists."""
     global build_log
-    if not force and LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent loader sees the old or the new file
-    return LIBRARY
+    library, log = nvcc_build(SOURCE, LIBRARY, force)
+    if log is not None:
+        build_log = log
+    return library
 
 
 def _library() -> ctypes.CDLL:

@@ -42,6 +42,7 @@ from atvsnet_torch.models.tvsnet import (
     tvsnet_base,
     tvsnet_refine,
 )
+from atvsnet_torch.nn.layers import ActQuant
 from atvsnet_torch.parallel.depth import DepthSplit
 from atvsnet_torch.parallel.mesh import Mesh, gather_blocks
 
@@ -101,9 +102,11 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     del outs
 
     # ---- stage 2: AAM1, over the view group ----
-    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, group=group, split=split)
+    quant = ActQuant.of(cfg)
+    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, group=group, split=split,
+                                     quant=quant)
     del filtered_costs
-    prob_agg = aam_output_conv(model, cost_agg, stage=1, split=split)
+    prob_agg = aam_output_conv(model, cost_agg, stage=1, split=split, quant=quant)
     depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=cfg.softargmin_impl,
                            split=split)
 
@@ -123,9 +126,10 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     del refined
 
     # ---- stage 4: AAM2, over the view group, + soft-argmin ----
-    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, group=group, split=split)
+    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, group=group, split=split,
+                                      quant=quant)
     del refined_costs
-    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, split=split), cfg,
+    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, split=split, quant=quant), cfg,
                          depth_start, depth_interval, out_prob_map, upsample, split)
     depth_group = None if split is None else split.group
     refined_probs = gather_blocks(refined_probs, depth_group, dim=2)   # (P, B, D, h, w)

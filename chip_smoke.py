@@ -5,7 +5,8 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
-  2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu into build/atvsnet_torch/
+  2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu and csrc/int8_conv.cu into
+                build/atvsnet_torch/, one nvcc per source, both at once
   3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
                 1e-6, NaN at the same pixels) at the main paths' shapes (the train
                 shape (1,32,32,40) in fp32 and bf16 among them), at edge shapes
@@ -21,22 +22,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 against autograd of the plain forward (atol 1e-5 * max|g| * max|sweep|),
                 at the train shape (1,32,32,40), the flagship's shapes, D not a multiple
                 of the kernel's chunk of planes, B = 2, odd h*w, D = 1 and 130, a
-                misaligned pointer, +inf planes
+                misaligned pointer, +inf planes. Then the int8 conv kernel of
+                act_quant="int8mxu" (conv3d_int8_cuda) against conv3d_int8_torch to the bit,
+                int32, fp32 and bf16 out: every shape class of the flagship forward
+                (INT8_MAIN_SHAPES: Co = 1, the AAM stack's B = 4), odd sizes, B = 2, Ci of
+                4-byte and byte loads, and a depth split's blocks with their halo (D pads 0)
   4. small      a 3-view 64x96 D32 forward on trained weights, on the GPU (kernel) and on
                 the CPU (plain path): the two must agree and recover the rendered scene
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
                 spheres weights on synthetic_scene(seed=0): shapes, finiteness, exactly
                 14 kernel launches, all on the aligned path, and agreement with
                 softargmin_impl="torch"
-                (both with cuDNN's deterministic algorithms)
+                (both with cuDNN's deterministic algorithms); then the same forward under
+                act_quant="int8mxu": every qin conv on the int8 kernel, 196 launches by
+                shape as INT8_MAIN_SHAPES, the soft-argmin's 14 as before
   6. timing     steady-state forward time and peak memory (default and deterministic
                 cuDNN algorithms); the forward with the port's activation
                 (torch.maximum(y, 0), the JAX package's tie rule) against torch.relu, in
                 turns; and per-shape kernel times beside the plain version's, the HBM
                 bound and an empty launch of the same grid (the forward also with its
-                statistics at the flagship's fp32 shapes and the train shape in bf16)
+                statistics at the flagship's fp32 shapes and the train shape in bf16);
+                the int8 conv at each INT8_MAIN_SHAPES class, fp32 and bf16 out, beside its
+                bound, the plain version and cuDNN's float conv of the same shape (the conv
+                the int8 route replaces; not the same function)
   7. profile    device time of one forward by kind of kernel, and its top kernels
-                (torch.profiler); the idle share is read against a CUDA-event bracket
+                (torch.profiler); the idle share is read against a CUDA-event bracket; the
+                same for the int8mxu forward
   8. pair_batch the same forward with pair_batch=True against pair_batch=False (cuDNN's
                 deterministic algorithms): depths agree within the bounds stated at
                 BATCH_MEAN_DIFF, the launches per volume shape are as reckoned, seconds (in
@@ -86,14 +97,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 (d) the eval CLI under torchrun, --mesh data=<count>, on a rendered
                 4-image 256x320 scene at 5 views, D=128: the files of an unsharded
                 run_eval_pc, the depth maps within the BATCH_MEAN_DIFF bounds
- 16. quant      each storage quantization (act_quant int8 and int8s, warp_quant int8,
+ 16. quant      each quantization (act_quant int8, int8s and int8mxu, warp_quant int8,
                 int8s + int8): phase_small's forward on the card against the CPU (bounds
                 QUANT_MEAN_DIFF, QUANT_MAX_DIFF); then the flagship forward (deterministic
                 cuDNN) in turns with the unquantized forward: median seconds of 5, peak
                 memory, |depth - unquantized depth| mean and max in sweep units; and at
                 the same size on a rendered scene, the depth moved and its error against
                 the ground truth. A second card-against-CPU line runs bench.py's default
-                mode, bf16 with int8s links and int8 warps, at the same bounds
+                mode, bf16 with int8s links and int8 warps, and int8mxu in bf16, at the
+                same bounds
  17. depth      the 'depth' mesh axis (parallel.depth): (a) the flagship forward on a
                 depth=2 mesh, 2 ranks sharing cuda:0 over gloo, and on (1, 2, 2), 4 ranks
                 each held to SHARED4_MEMORY_FRACTION of the card, against one process within
@@ -121,9 +133,11 @@ same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only kernels native fusion eval train parallel quant
-depth helpers` runs just those phases after device and build (kernels: every kernel check and
-kernel timing above, no model; depth with the depth-split kernels' checks and times): a
+nothing of JAX or of atvsnet_tpu. `--only kernels int8 native fusion eval train parallel
+quant depth helpers` runs just those phases after device and build (kernels: every kernel
+check and kernel timing above, no model; int8: the int8 conv's checks, the flagship int8mxu
+forward and its profile, the int8 conv's times; depth with the depth-split kernels' checks
+and times): a
 short run while working on one of them, which exits 1 and prints no kernels line and no ok
 line. `--only kernels --baseline DIR` also times DIR's kernels (another checkout, say the
 parent commit unpacked under build/) in turns with this tree's on the same inputs.
@@ -132,6 +146,7 @@ parent commit unpacked under build/) in turns with this tree's on the same input
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import glob
 import json
 import math
@@ -177,6 +192,7 @@ from atvsnet_torch.models.tvsnet import (aam_aggregate, aam_aggregate_stacked, a
                                          refinement, tvsnet_base)
 from atvsnet_torch.nn import aam
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.ops import int8_conv as I8
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
 from atvsnet_torch.parallel.mesh import auto_mesh_shape, make_mesh
@@ -308,14 +324,15 @@ PARALLEL_EVAL = dict(view_num=5, max_d=128, max_h=256, max_w=320)
 # value within float noise of a lattice tie lands one step away, and the U-Nets and
 # refinement amplify that step.
 QUANT_MODES = {"act int8": dict(act_quant="int8"), "act int8s": dict(act_quant="int8s"),
-               "warp int8": dict(warp_quant="int8"),
+               "act int8mxu": dict(act_quant="int8mxu"), "warp int8": dict(warp_quant="int8"),
                "act int8s + warp int8": dict(act_quant="int8s", warp_quant="int8")}
 QUANT_ROUNDS = 5
 QUANT_MEAN_DIFF, QUANT_MAX_DIFF = 2e-3, 1e-2
 # bench.py's default mode, bf16 with int8s links and int8 warps, on the card against the CPU
 # at the same size and bounds (tests/test_torch_quant_bf16.py holds it against JAX)
 QUANT_BF16_MODES = {"act int8s + warp int8, bf16": dict(act_quant="int8s", warp_quant="int8",
-                                                          compute_dtype="bfloat16")}
+                                                          compute_dtype="bfloat16"),
+                    "act int8mxu, bf16": dict(act_quant="int8mxu", compute_dtype="bfloat16")}
 # The helpers phase: the JAX package's public helpers that no path calls, each on the card
 # against the same call on the CPU. fp32 with TF32 off, so they differ only in the order
 # of sums: the CPU tests' bound against JAX, 1e-5 of max(1, the largest value); the
@@ -349,6 +366,29 @@ SPLIT_SHAPES = ((1, 64, 120, 224), (1, 64, 120, 896))
 # the flagship forward with each activation, in this order: every relu beside a maximum,
 # first and last alike, so that a drift of the host's launch rate falls on both
 ACTIVATION_ORDER = ("relu", "maximum", "maximum", "relu") * 3
+# The int8 conv kernel of act_quant="int8mxu" (ops.int8_conv): its launches in one flagship
+# forward (5 views, 480x896, D=128) by input (B, D, H, W, Ci) and (Co, stride). Every qin
+# conv: per CRM pass (8: 2 directions x 4 pairs) the 19 trunk convs and the prob conv, per
+# refinement (4) the 7 trunk convs and d_cost_vol, per AAM (2) the [unique | shared] conv
+# of the 4-pair stack and the output conv, on the (128, 120, 224) volume and its halvings.
+INT8_MAIN_SHAPES = {
+    (1, 128, 120, 224, 8, 8, 1): 16,     # CRM b1/b2 0_1
+    (1, 128, 120, 224, 8, 16, 2): 16,    # CRM b1/b2 1_0
+    (1, 128, 120, 224, 8, 1, 1): 14,     # CRM prob (8), refine d_cost_vol (4), AAM output (2)
+    (1, 128, 120, 224, 32, 8, 1): 4,     # refine 0_1
+    (1, 128, 120, 224, 32, 16, 2): 4,    # refine 1_0
+    (1, 64, 60, 112, 16, 16, 1): 28,     # 1_1: 3 per CRM pass, 1 per refinement
+    (1, 64, 60, 112, 16, 32, 2): 28,     # 2_0
+    (1, 32, 30, 56, 32, 32, 1): 28,      # 2_1
+    (1, 32, 30, 56, 32, 64, 2): 28,      # 3_0
+    (1, 16, 15, 28, 64, 64, 1): 28,      # 3_1
+    (4, 128, 120, 224, 8, 16, 1): 2,     # AAM [unique | shared], relu
+}
+INT8_EXPECTED_LAUNCHES = sum(INT8_MAIN_SHAPES.values())   # 196
+# Published dense int8 tensor-core peaks, NVIDIA data sheets.
+INT8_OPS_PER_S = {"sxm": 1979e12, "pcie": 1513e12}
+# an output scale of the size the route gives: (R / 127) * (max|w| / 127) at R = 6
+INT8_SCALE = 6.0 / 127.0 * 0.4 / 127.0
 
 
 def emit(**record):
@@ -831,7 +871,8 @@ def phase_timing_backward(kind):
 
 
 def phase_profile(model, images, cams, cfg):
-    """Device time of one forward by kind of work, from torch.profiler's kernel events."""
+    """Device time of one forward (at cfg's act_quant) by kind of work, from
+    torch.profiler's kernel events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -851,7 +892,8 @@ def phase_profile(model, images, cams, cfg):
             else "self_cuda_time_total")
     pseudo = ("Buffer Flush", "Activity Buffer Request")
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in pseudo]
-    categories = {"cuDNN conv + cuBLAS gemm (incl. FFT conv)": ("conv", "xmma", "gemm", "fft",
+    categories = {"int8 conv (this repo's CUDA kernel)": ("conv3d_int8",),
+                  "cuDNN conv + cuBLAS gemm (incl. FFT conv)": ("conv", "xmma", "gemm", "fft",
                                                              "Tensor5d", "nchw", "nhwc", "DSE::",
                                                              "region_transform"),
                   "softargmin (this repo's CUDA kernel)": ("softargmin",),
@@ -869,7 +911,8 @@ def phase_profile(model, images, cams, cfg):
     # Idle share against the device's own clock between the two events. The profiler's
     # summed kernel time can exceed that span (it did, against the host's wall time); the
     # share is then reported as it is, negative, and not cut to 0.
-    emit(phase="profile", wall_ms=wall * 1e3, event_ms=event_ms, device_busy_ms=busy,
+    emit(phase="profile", act_quant=cfg.act_quant, wall_ms=wall * 1e3, event_ms=event_ms,
+         device_busy_ms=busy,
          device_idle_share=1.0 - busy / event_ms, device_ms_by_kind=split,
          top_kernels=[{"name": e.key[:90], "device_ms": getattr(e, attr) / 1e3, "calls": e.count}
                       for e in top])
@@ -2270,6 +2313,205 @@ def phase_timing_split(kind):
     return totals, bound_by
 
 
+# ---- the int8 conv of act_quant="int8mxu" ----
+
+def int8_pads(shape, stride, halo=False):
+    """TF-SAME (lo, hi) per D, H, W of a k3 conv of a (B, D, H, W, Ci) input at `stride`;
+    with `halo`, D already carries its halo planes and takes (0, 0), as a depth split's
+    block does."""
+    pads = [L._same_pads(n, 3, stride) for n in shape[1:4]]
+    return [(0, 0)] + pads[1:] if halo else pads
+
+
+def int8_inputs(shape, co, seed):
+    """Seeded int8 operands over the whole range of the quantized ones, [-127, 127]: the
+    input (B, D, H, W, Ci) and the kernel (Co, Ci, 3, 3, 3)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xq = torch.randint(-127, 128, shape, device="cuda", dtype=torch.int8, generator=g)
+    wq = torch.randint(-127, 128, (co, shape[-1], 3, 3, 3), device="cuda", dtype=torch.int8,
+                       generator=g)
+    return xq, wq
+
+
+def int8_kernel_cases():
+    """(name, input shape, Co, stride, halo): every shape class of the flagship forward
+    (INT8_MAIN_SHAPES, with Co = 1 and the AAM's B = 4), odd sizes, B = 2 (pair_batch's
+    stage 1), Ci that takes 4-byte and byte loads, and a depth=2 split's blocks of the
+    flagship volumes with their halo planes (D pads (0, 0))."""
+    cases = [(f"main {'x'.join(map(str, k[:5]))}->{k[5]} s{k[6]}", k[:5], k[5], k[6], False)
+             for k in INT8_MAIN_SHAPES]
+    return cases + [("odd sizes s1", (2, 9, 7, 13, 16), 32, 1, False),
+                    ("odd sizes s2", (1, 7, 9, 11, 8), 16, 2, False),
+                    ("pair_batch B=2", (2, 128, 120, 224, 8), 16, 2, False),
+                    ("Ci 12, 4-byte loads", (1, 8, 10, 12, 12), 24, 1, False),
+                    ("Ci 6, byte loads", (1, 6, 5, 7, 6), 3, 1, False),
+                    ("depth block s1", (1, 66, 120, 224, 8), 8, 1, True),
+                    ("depth block s2", (1, 65, 60, 112, 16), 32, 2, True),
+                    ("depth block AAM B=4", (4, 66, 120, 224, 8), 16, 1, True)]
+
+
+def phase_kernel_int8() -> float:
+    """The int8 conv kernel against conv3d_int8_torch (a float64 conv3d of the integer
+    values, exact) to the bit, in each output kind: the int32 sums and the fp32 and bf16
+    outputs scaled by INT8_SCALE. Each line names the kernel's tile and grid. Returns the
+    largest difference (0 when all agree)."""
+    worst, ok = 0.0, True
+    scale = torch.tensor(INT8_SCALE, device="cuda")
+    for i, (name, shape, co, stride, halo) in enumerate(int8_kernel_cases()):
+        xq, wq = int8_inputs(shape, co, seed=700 + i)
+        pads = int8_pads(shape, stride, halo)
+        acc = I8.conv3d_int8_torch(xq, wq, stride, pads)
+        before = I8.conv3d_int8_cuda.launches
+        outputs = {}
+        for out_dtype in (None, torch.float32, torch.bfloat16):
+            sc = None if out_dtype is None else scale
+            got = I8.conv3d_int8_cuda(xq, wq, stride, pads, sc, out_dtype)
+            torch.cuda.synchronize()
+            want = I8.epilogue(acc, sc, out_dtype)
+            err = float((got.double() - want.double()).abs().max())
+            outputs[str(out_dtype or torch.int32).split(".")[-1]] = {
+                "equal": bool(torch.equal(got, want)), "max_abs_err": err}
+            worst = max(worst, err)
+            del got, want
+        launched = I8.conv3d_int8_cuda.launches - before
+        case_ok = all(o["equal"] for o in outputs.values()) and launched == 3
+        emit(phase="kernel", kernel="conv3d_int8", case=name, input=list(shape), co=co,
+             stride=stride, pads=pads, output=list(acc.shape),
+             plan=I8.launch_plan(shape, co, stride, pads, torch.float32),
+             largest_sum=int(acc.abs().max()), outputs=outputs, launches=launched, ok=case_ok)
+        ok = ok and case_ok
+        del xq, wq, acc
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the int8 conv kernel disagrees with its plain version; see above")
+    return worst
+
+
+def int8_bound_ms(shape, co, stride, out_bytes: int, kind: str):
+    """Least time of one int8 conv: the int8 input and weights read once, the output
+    written once (out_bytes a value) and the scale read, over HBM bandwidth, vs 2 * 27 * Ci
+    operations per output value over the int8 tensor-core peak."""
+    B, D, H, W, Ci = shape
+    _, Do, Ho, Wo, _ = I8.output_shape(shape, co, stride, int8_pads(shape, stride))
+    outputs = B * Do * Ho * Wo * co
+    nbytes = B * D * H * W * Ci + co * Ci * 27 + outputs * out_bytes + 4
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    t_ops = 2 * 27 * Ci * outputs / INT8_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing_int8(kind):
+    """Device times of the int8 conv kernel at every shape class of the flagship forward
+    (INT8_MAIN_SHAPES), with fp32 and bf16 output, beside its bound, the plain version's
+    time (fp32) and, as a yardstick, cuDNN's float conv of the same shape in the output's
+    dtype (the port's float conv, layers._padded_conv, with deterministic algorithms and
+    TF32 off): the conv that the int8 route replaces, not the same function. Returns the
+    kernel, plain, bound and cuDNN ms of one fp32 flagship forward, and what bounds most of
+    that forward's bound (a class of its own may be bound by the other)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    totals = dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_float_ms"), 0.0)
+    bound_ms_by = {"bytes": 0.0, "operations": 0.0}
+    scale = torch.tensor(INT8_SCALE, device="cuda")
+    for key, n in INT8_MAIN_SHAPES.items():
+        shape, co, stride = key[:5], key[5], key[6]
+        pads = int8_pads(shape, stride)
+        nbuf = max(2, math.ceil(200e6 / math.prod(shape)))
+        bufs = [int8_inputs(shape, co, seed=800 + i) for i in range(nbuf)]
+        for out_dtype in (torch.float32, torch.bfloat16):
+            k_ms = device_ms(lambda x, w: I8.conv3d_int8_cuda(x, w, stride, pads, scale, out_dtype),
+                             bufs, 20)
+            floats = [(x.to(out_dtype), w.to(out_dtype)) for x, w in bufs[:2]]
+            c_ms = device_ms(lambda x, w: L._padded_conv(x, w, None, stride, 1, pads), floats, 20)
+            del floats
+            p_ms = None
+            if out_dtype == torch.float32:
+                p_ms = device_ms(lambda x, w: I8.conv3d_int8_torch(x, w, stride, pads, scale,
+                                                                   out_dtype), bufs[:1], 2)
+            b_ms, b_by = int8_bound_ms(shape, co, stride, out_dtype.itemsize, kind)
+            emit(phase="timing", what="conv3d_int8", input=list(shape), co=co, stride=stride,
+                 out_dtype=str(out_dtype).split(".")[-1], launches_per_forward=n,
+                 plan=I8.launch_plan(shape, co, stride, pads, out_dtype), kernel_ms=k_ms,
+                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, kernel_over_bound=k_ms / b_ms,
+                 cudnn_float_ms=c_ms, buffers=nbuf, library_ms=None,
+                 library="none: PyTorch has no int8 conv3d with int32 sums; cudnn_float_ms is "
+                         "the float conv of the same shape that the int8 route replaces")
+            if out_dtype == torch.float32:
+                for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
+                             ("cudnn_float_ms", c_ms)):
+                    totals[k] += n * v
+                bound_ms_by[b_by] += n * b_ms
+        del bufs
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return totals, max(bound_ms_by, key=bound_ms_by.get)
+
+
+def phase_forward_int8(model, images, cams, cfg) -> int:
+    """The flagship forward under act_quant="int8mxu" (deterministic cuDNN): every qin conv
+    on the int8 kernel, counted from 0 over this forward (INT8_MAIN_SHAPES), the soft-argmin
+    kernel's launches as in the fp32 forward (MAIN_SHAPES), shapes and finiteness, seconds
+    and peak memory of this first forward, and how far it moves the depth from the
+    unquantized forward's (no bound: the noise images' softmax over D is flat, see
+    phase_quant, which also times it in turns)."""
+    mxu = cfg.replace(act_quant="int8mxu")
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    I8.reset_launch_counts()
+    S.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = multi_view_forward(model, images, cams, mxu)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = I8.conv3d_int8_cuda.launches
+    by_shape = dict(I8.conv3d_int8_cuda.shape_launches)
+    softargmin_by_shape = dict(S.softargmin_cuda.shape_launches)
+    peak = torch.cuda.max_memory_allocated()
+    B, N, H, W = 1, cfg.view_num, cfg.max_h, cfg.max_w
+    h, w, D, P = H // 4, W // 4, cfg.max_d, N - 1
+    shapes = {"depth": (B, h, w, 1), "depth_up": (B, H, W, 1), "depth_agg_initial": (B, h, w, 1),
+              "prob_volume_agg": (B, D, h, w), "refined_prob_volumes": (P, B, D, h, w),
+              "depth_views": (P, B, h, w, 1)}
+    bad = [k for k, s in shapes.items() if tuple(out[k].shape) != s]
+    nonfinite = [k for k in shapes if not bool(torch.isfinite(out[k]).all())]
+    plain = multi_view_forward(model, images, cams, cfg)
+    torch.backends.cudnn.deterministic = False
+    interval = float(cams[0, 0, 1, 3, 1])
+    moved = {k: {"mean_planes": float((out[k] - plain[k]).abs().mean()) / interval,
+                 "max_planes": float((out[k] - plain[k]).abs().max()) / interval}
+             for k in ("depth", "depth_agg_initial", "depth_views")}
+    ok = (not bad and not nonfinite and by_shape == INT8_MAIN_SHAPES
+          and launches == INT8_EXPECTED_LAUNCHES and softargmin_by_shape == MAIN_SHAPES)
+    emit(phase="forward", act_quant="int8mxu", int8_launches=launches,
+         expected_int8_launches=INT8_EXPECTED_LAUNCHES,
+         int8_launches_by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()},
+         softargmin_launches_by_shape=shape_counts(softargmin_by_shape), bad_shapes=bad,
+         nonfinite=nonfinite, seconds_first=seconds, peak_memory_bytes=peak,
+         moved_from_unquantized=moved, ok=ok)
+    if bad or nonfinite:
+        raise AssertionError(f"int8mxu forward outputs wrong: shapes {bad}, non-finite {nonfinite}")
+    if by_shape != INT8_MAIN_SHAPES or launches != INT8_EXPECTED_LAUNCHES:
+        raise AssertionError(f"int8 conv launches {by_shape}, expected {INT8_MAIN_SHAPES}")
+    if softargmin_by_shape != MAIN_SHAPES:
+        raise AssertionError(f"soft-argmin launches under int8mxu {softargmin_by_shape}")
+    return launches
+
+
+def phase_int8_only(kind):
+    """`--only int8`: the kernel checks, the flagship int8mxu forward and the timings."""
+    phase_kernel_int8()
+    cfg = PipelineConfig()
+    images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
+                                   D=cfg.max_d, seed=0)
+    model = load_model(SPHERES, cfg, device="cuda")
+    phase_forward_int8(model, images, cams, cfg)
+    phase_profile(model, images, cams, cfg.replace(act_quant="int8mxu"))
+    del model
+    torch.cuda.empty_cache()
+    phase_timing_int8(kind)
+
+
 def load_baseline(root: str):
     """atvsnet_torch/ops/softargmin.py of another checkout (say the parent commit unpacked
     under build/), loaded beside this one under its own name; it builds its own library
@@ -2553,8 +2795,8 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
-                    choices=["kernels", "native", "fusion", "eval", "train", "parallel", "quant",
-                             "depth", "helpers"],
+                    choices=["kernels", "int8", "native", "fusion", "eval", "train", "parallel",
+                             "quant", "depth", "helpers"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
@@ -2571,19 +2813,25 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, bandwidth_assumed=HBM_BYTES_PER_S[kind])
 
     t0 = time.perf_counter()
-    S.build(force=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
+        for built in [pool.submit(m.build, True) for m in (S, I8)]:
+            built.result()
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
-         ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln])
+         ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln],
+         int8_library=os.path.relpath(I8.LIBRARY, ROOT),
+         int8_ptxas=[ln for ln in I8.build_log.splitlines() if "ptxas" in ln])
 
     def kernels():
-        phase_kernel(), phase_kernel_backward(), phase_kernel_split()
+        phase_kernel(), phase_kernel_backward(), phase_kernel_split(), phase_kernel_int8()
         phase_timing_kernel(kind), phase_timing_backward(kind), phase_timing_split(kind)
+        phase_timing_int8(kind)
         if args.baseline:
             phase_kernel_turns(load_baseline(args.baseline), args.baseline)
 
     if args.only:
         for phase in args.only:
-            {"kernels": kernels, "native": phase_native, "fusion": lambda: phase_fusion(kind),
+            {"kernels": kernels, "int8": lambda: phase_int8_only(kind), "native": phase_native,
+             "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
              "quant": phase_quant, "helpers": phase_helpers,
              "depth": lambda: (phase_kernel_split(), phase_timing_split(kind), phase_depth())
@@ -2593,6 +2841,7 @@ def main() -> int:
     max_err = phase_kernel()
     max_err_bwd = phase_kernel_backward()
     max_err_partial, max_err_stats = phase_kernel_split()
+    max_err_int8 = phase_kernel_int8()
     phase_small()
 
     cfg = PipelineConfig()                              # 5 views, 480x896, D=128, fp32
@@ -2600,10 +2849,13 @@ def main() -> int:
                                    D=cfg.max_d, seed=0)
     model = load_model(SPHERES, cfg, device="cuda")
     launches = phase_forward(model, images, cams, cfg)
+    int8_launches = phase_forward_int8(model, images, cams, cfg)
     totals, bound_by = phase_timing(model, images, cams, cfg, kind)
     bwd_totals, bwd_bound_by = phase_timing_backward(kind)
     split_totals, split_bound_by = phase_timing_split(kind)
+    int8_totals, int8_bound_by = phase_timing_int8(kind)
     phase_profile(model, images, cams, cfg)
+    phase_profile(model, images, cams, cfg.replace(act_quant="int8mxu"))
     phase_pair_batch(model, images, cams, cfg)
     del model
     torch.cuda.empty_cache()
@@ -2628,7 +2880,8 @@ def main() -> int:
     # launches: the flagship forward's, the eval path's, the train CLI run's and the parallel
     # phase's (summed over its ranks' counted runs), each counted from 0 over its own run;
     # the forward's ms, plain_ms and bound_ms are per flagship forward, the backward's per
-    # train step of the CLI (its 4 launches at the train shape)
+    # train step of the CLI (its 4 launches at the train shape); the int8 conv's launches
+    # and times are those of the flagship int8mxu forward (fp32)
     train_fwd, train_bwd = train_launches["forward"]["launches"], train_launches["backward"]["launches"]
     par_fwd, par_bwd = parallel_launches["forward"], parallel_launches["backward"]
     # the two backward entry points launch one kernel, softargmin_grad_kernel
@@ -2662,6 +2915,17 @@ def main() -> int:
         "launches": depth_launches["backward_stats"], "max_abs_err": max_err_stats,
         **split_totals["backward_stats"], "bound_by": split_bound_by["backward_stats"],
         "library_ms": None,
+    }, {
+        "name": "conv3d_int8", "kernel": "conv3d_int8_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/int8_conv.cu",
+        "replaces": "atvsnet_tpu/nn/layers.py:233 (XLA's int8 convolution under "
+                    "act_quant=int8mxu, lines 233-246; not a Pallas kernel)",
+        "launches": int8_launches, "max_abs_err": max_err_int8, "ms": int8_totals["ms"],
+        "plain_ms": int8_totals["plain_ms"], "bound_ms": int8_totals["bound_ms"],
+        "bound_by": int8_bound_by, "library_ms": None,
+        "cudnn_float_ms": int8_totals["cudnn_float_ms"],
+        "library": "none: PyTorch has no int8 conv3d with int32 sums; cudnn_float_ms is the "
+                   "float conv of the same shapes that the route replaces, not the same function",
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0

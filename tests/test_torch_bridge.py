@@ -75,10 +75,11 @@ def test_config_fields_and_validation():
     tfields = {f.name for f in dataclasses.fields(PipelineConfig)}
     assert tfields == jfields - DROPPED
     for bad in ({"max_d": 12}, {"max_h": 100}, {"view_num": 1}, {"softargmin_impl": "pallas"},
-                {"compute_dtype": "float16"}, {"act_quant": "int8mxu"}, {"warp_quant": "int8s"}):
+                {"compute_dtype": "float16"}, {"act_quant": "int8x"}, {"warp_quant": "int8s"}):
         with pytest.raises(ValueError):
             PipelineConfig(**bad)
     assert PipelineConfig(compute_dtype="bfloat16").dtype == torch.bfloat16
+    assert PipelineConfig(act_quant="int8mxu").act_quant == "int8mxu"
 
 
 def test_default_device_is_cuda_never_cpu():

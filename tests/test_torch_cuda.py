@@ -2,7 +2,8 @@
 without its softmax statistics, the one gradient kernel behind both backward entry points,
 the depth split's partial forward, its grid's edges and its grid query) on the card, the
 forward, pair_batch, DepthEstimator and training paths that launch them, and the
-consistency fusion.
+consistency fusion. The int8 conv kernel of act_quant="int8mxu" against its plain version
+to the bit, and the int8mxu forward that launches it.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
@@ -10,17 +11,25 @@ present and skips with a reason otherwise. Run them on a GPU machine with
 the main path's full shapes.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from atvsnet_torch.config import PipelineConfig
-from atvsnet_torch.data.synthetic import synthetic_scene
+from atvsnet_torch.data.synthetic import render_multiplane_scene, synthetic_scene
 from atvsnet_torch.models.atvsnet import multi_view_forward
 from atvsnet_torch.models.tvsnet import init_model
+from atvsnet_torch.nn import layers as L
+from atvsnet_torch.ops import int8_conv as I
 from atvsnet_torch.ops import softargmin as S
+from atvsnet_torch.params import load_model
 
 pytestmark = pytest.mark.cuda
+
+SPHERES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "artifacts",
+                       "trained_demo", "spheres_params.npz")
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -530,3 +539,58 @@ def test_split_entry_points_reject_what_they_cannot_take(cuda):
     depth, stats = S.merge_partials(S.softargmin_partial_torch(cost, ds, di), None)
     with pytest.raises(ValueError):
         S.softargmin_backward_stats_cuda(cost, ds, di, 0, stats[:1], depth, depth)
+
+
+@pytest.mark.parametrize("shape,co,stride,pads", [
+    ((1, 16, 30, 56, 8), 8, 1, [(1, 1), (1, 1), (1, 1)]),
+    ((1, 16, 30, 56, 8), 16, 2, [(0, 1), (0, 1), (0, 1)]),
+    ((2, 9, 7, 13, 16), 32, 1, [(1, 1), (1, 1), (1, 1)]),
+    ((1, 8, 15, 28, 64), 64, 1, [(1, 1), (1, 1), (1, 1)]),
+    ((1, 16, 30, 56, 32), 64, 2, [(0, 1), (0, 1), (0, 1)]),
+    ((4, 6, 5, 7, 8), 1, 1, [(1, 1), (1, 1), (1, 1)]),
+    ((1, 6, 5, 7, 6), 3, 1, [(0, 0), (1, 1), (1, 1)])])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+def test_int8_conv_kernel_equals_plain(cuda, shape, co, stride, pads, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xq = torch.randint(-127, 128, shape, device=cuda, dtype=torch.int8, generator=g)
+    wq = torch.randint(-127, 128, (co, shape[-1], 3, 3, 3), device=cuda, dtype=torch.int8,
+                       generator=g)
+    scale = None if out_dtype is None else torch.tensor(1.3e-4, device=cuda)
+    before = I.conv3d_int8_cuda.launches
+    got = I.conv3d_int8(xq, wq, stride, pads, scale, out_dtype)
+    torch.cuda.synchronize()
+    assert I.conv3d_int8_cuda.launches == before + 1
+    assert torch.equal(got, I.conv3d_int8_torch(xq, wq, stride, pads, scale, out_dtype))
+
+
+def test_int8_conv_kernel_refuses_what_it_cannot_take(cuda):
+    xq = torch.zeros((1, 4, 4, 4, 8), device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        I.conv3d_int8_cuda(xq, torch.zeros((72, 8, 3, 3, 3), device=cuda, dtype=torch.int8), 1,
+                           [(1, 1)] * 3)
+    with pytest.raises(ValueError):
+        I.conv3d_int8_cuda(xq[:, :, :, ::2], torch.zeros((8, 8, 3, 3, 3), device=cuda,
+                                                         dtype=torch.int8), 1, [(1, 1)] * 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8mxu_forward_launches_the_int8_kernel(cuda, dtype):
+    """Every qin conv of the small forward on the kernel: per CRM pass 20 (19 trunk convs
+    and the prob conv), per refinement 8, per AAM 2; and the card against the CPU."""
+    cfg = PipelineConfig(view_num=3, max_d=32, max_h=64, max_w=96, compute_dtype=dtype,
+                         act_quant="int8mxu")
+    scene = render_multiplane_scene(view_num=3, H=64, W=96, D=32, seed=11, num_spheres=2)
+    I.reset_launch_counts()
+    got = multi_view_forward(load_model(SPHERES, cfg, device="cuda"), scene["images"],
+                             scene["cams"], cfg)
+    torch.cuda.synchronize()
+    assert I.conv3d_int8_cuda.launches == 2 * 2 * 20 + 2 * 8 + 2 * 2
+    want = multi_view_forward(load_model(SPHERES, cfg, device="cpu"), scene["images"],
+                              scene["cams"], cfg)
+    # the bounds of tests/test_torch_int8_conv.py against JAX: the chaos of lattice ties
+    mean_bound, max_bound = {"float32": (2e-3, 1e-2), "bfloat16": (6e-3, 4.5e-2)}[dtype]
+    for k in ("depth", "depth_agg_initial", "depth_views"):
+        d = (got[k].float().cpu() - want[k].float()).abs()
+        assert torch.isfinite(got[k]).all()
+        assert float(d.mean()) <= mean_bound and float(d.max()) <= max_bound, (k, d.max())
+    assert L.ActQuant.of(cfg).mode == "int8mxu"

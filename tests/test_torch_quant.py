@@ -8,7 +8,8 @@ against the JAX package's (atvsnet_tpu/numerics.py policy), on the CPU.
   * through plane_sweep_warp, whose bilinear samples differ between the packages in the
     last bits: the quantized volumes agree within one lattice step, at no more than 0.1%
     of the elements (measured: none);
-  * PipelineConfig validation as JAX's, and int8mxu refused;
+  * PipelineConfig validation as JAX's, act_quant="int8mxu" among the modes it takes
+    (tests/test_torch_int8_conv.py holds that mode's convs against JAX's);
   * stage 1 (tvsnet_base) and stage 3 (tvsnet_refine) of one pair at act_quant int8s and
     int8, the port's and JAX's fed the same inputs, the port's seeded weights carried over
     to JAX by export_jax_params: every link quantized in the same place, held at the
@@ -59,6 +60,7 @@ from atvsnet_torch.geometry.homography import get_homographies
 from atvsnet_torch.models.atvsnet import multi_view_forward
 from atvsnet_torch.models.tvsnet import extract_features, tvsnet_base, tvsnet_refine
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.ops import int8_conv as I
 from atvsnet_torch.params import export_jax_params, init_model
 from atvsnet_torch.parallel.pipeline import multi_view_forward_spmd
 from atvsnet_torch.serving import DepthEstimator
@@ -145,24 +147,33 @@ def test_plane_sweep_warp_quantized_as_jax():
 @pytest.mark.parametrize("kw", [dict(act_quant="int4"), dict(warp_quant="int4"),
                                 dict(warp_quant="int8s"), dict(act_quant="int8"),
                                 dict(act_quant="int8s", act_quant_range=4.0),
-                                dict(warp_quant="int8")])
+                                dict(warp_quant="int8"), dict(act_quant="int8mxu")])
 def test_config_validates_as_jax(kw):
     try:
         JaxConfig(**kw)
     except ValueError as e:
         with pytest.raises(ValueError) as got:
             PipelineConfig(**kw)
-        assert str(got.value).split(":")[0] == str(e).split(":")[0]
-        assert str(got.value).replace("|int8mxu", "") == str(e).replace("|int8mxu", "")
+        assert str(got.value) == str(e)
     else:
         cfg = PipelineConfig(**kw)
         assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
 def test_int8mxu_is_refused_with_a_reason():
-    JaxConfig(act_quant="int8mxu")
-    with pytest.raises(ValueError, match="TPU MXU's int8 convolution path and is not ported"):
-        PipelineConfig(act_quant="int8mxu")
+    """act_quant="int8mxu" validates as JAX's config does: accepted, with JAX's list of
+    modes in the message of every mode refused; what is refused with a reason now is a
+    tensor that its int8 conv kernel cannot take (a CPU tensor, here)."""
+    assert JaxConfig(act_quant="int8mxu").act_quant == "int8mxu"
+    assert PipelineConfig(act_quant="int8mxu").act_quant == "int8mxu"
+    assert L.ActQuant.of(PipelineConfig(act_quant="int8mxu")) == L.ActQuant("int8mxu", 6.0)
+    for bad in ("int4", "int8mxu2"):
+        with pytest.raises(ValueError) as e:
+            PipelineConfig(act_quant=bad)
+        assert str(e.value) == f"act_quant={bad!r}: expected one of none|int8|int8s|int8mxu"
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        I.conv3d_int8_cuda(torch.zeros((1, 2, 2, 2, 8), dtype=torch.int8),
+                           torch.zeros((8, 8, 3, 3, 3), dtype=torch.int8), 1, [(1, 1)] * 3)
     assert PipelineConfig().act_quant == "none" and PipelineConfig().act_quant_range == 6.0
     assert PipelineConfig().warp_quant == "none"
 
@@ -295,8 +306,7 @@ def test_eval_cli_quant_flags(eval_scene, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--act-quant", "int8mxu"], "TPU MXU's int8 convolution path and is not ported"),
-    (["--act-quant", "int4"], "act_quant='int4': expected one of none|int8|int8s"),
+    (["--act-quant", "int4"], "act_quant='int4': expected one of none|int8|int8s|int8mxu"),
     (["--warp-quant", "int8s"], "warp_quant='int8s': expected one of none|int8")])
 def test_eval_cli_refuses_what_the_config_refuses(argv, message):
     proc = subprocess.run([sys.executable, "-m", "atvsnet_torch.cli.eval_pointcloud",
