@@ -26,7 +26,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 act_quant="int8mxu" (conv3d_int8_cuda) against conv3d_int8_torch to the bit,
                 int32, fp32 and bf16 out: every shape class of the flagship forward
                 (INT8_MAIN_SHAPES: Co = 1, the AAM stack's B = 4), odd sizes, B = 2, Ci of
-                4-byte and byte loads, and a depth split's blocks with their halo (D pads 0)
+                4-byte and byte loads, and a depth split's blocks with their halo (D pads 0);
+                each case's launch plan checked by the C side first and its path named
+                (ring, ring_cluster or generic), and the other ring path, forced, held to
+                the int32 sums too
   4. small      a 3-view 64x96 D32 forward on trained weights, on the GPU (kernel) and on
                 the CPU (plain path): the two must agree and recover the rendered scene
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
@@ -35,7 +38,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms); then the same forward under
                 act_quant="int8mxu": every qin conv on the int8 kernel, 196 launches by
-                shape as INT8_MAIN_SHAPES, the soft-argmin's 14 as before
+                shape as INT8_MAIN_SHAPES and by path as the planner says (none generic),
+                the soft-argmin's 14 as before
   6. timing     steady-state forward time and peak memory (default and deterministic
                 cuDNN algorithms); the forward with the port's activation
                 (torch.maximum(y, 0), the JAX package's tie rule) against torch.relu, in
@@ -43,8 +47,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 bound and an empty launch of the same grid (the forward also with its
                 statistics at the flagship's fp32 shapes and the train shape in bf16);
                 the int8 conv at each INT8_MAIN_SHAPES class, fp32 and bf16 out, beside its
-                bound, the plain version and cuDNN's float conv of the same shape (the conv
-                the int8 route replaces; not the same function)
+                bound, an empty launch of its grid, the other ring path (fp32), the plain
+                version and cuDNN's float conv of the same shape (the conv the int8 route
+                replaces; not the same function)
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket; the
                 same for the int8mxu forward
@@ -139,8 +144,10 @@ check and kernel timing above, no model; int8: the int8 conv's checks, the flags
 forward and its profile, the int8 conv's times; depth with the depth-split kernels' checks
 and times): a
 short run while working on one of them, which exits 1 and prints no kernels line and no ok
-line. `--only kernels --baseline DIR` also times DIR's kernels (another checkout, say the
-parent commit unpacked under build/) in turns with this tree's on the same inputs.
+line. `--only kernels --baseline DIR` also times DIR's soft-argmin kernels (another
+checkout, say the parent commit unpacked under build/) in turns with this tree's on the
+same inputs; `--only int8 --baseline DIR` DIR's int8 conv kernel at every INT8_MAIN_SHAPES
+class, fp32 and bf16 out.
 """
 
 from __future__ import annotations
@@ -158,6 +165,7 @@ import sys
 import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2353,15 +2361,20 @@ def int8_kernel_cases():
 def phase_kernel_int8() -> float:
     """The int8 conv kernel against conv3d_int8_torch (a float64 conv3d of the integer
     values, exact) to the bit, in each output kind: the int32 sums and the fp32 and bf16
-    outputs scaled by INT8_SCALE. Each line names the kernel's tile and grid. Returns the
-    largest difference (0 when all agree)."""
+    outputs scaled by INT8_SCALE. Each case's plan (ops.int8_conv.plan) is first checked
+    by the C side (launch_plan: it refuses what it cannot take) and its line names the
+    path it took and the plan; where a tensor map describes the input, the other ring
+    path, forced, is held to the int32 sums as well (those launches count on their path
+    but no main path runs here). Returns the largest difference (0 when all agree)."""
     worst, ok = 0.0, True
     scale = torch.tensor(INT8_SCALE, device="cuda")
     for i, (name, shape, co, stride, halo) in enumerate(int8_kernel_cases()):
         xq, wq = int8_inputs(shape, co, seed=700 + i)
         pads = int8_pads(shape, stride, halo)
         acc = I8.conv3d_int8_torch(xq, wq, stride, pads)
+        chosen = I8.launch_plan(shape, co, stride, pads, torch.float32)
         before = I8.conv3d_int8_cuda.launches
+        before_path = I8.conv3d_int8_cuda.path_launches[chosen["path"]]
         outputs = {}
         for out_dtype in (None, torch.float32, torch.bfloat16):
             sc = None if out_dtype is None else scale
@@ -2374,11 +2387,25 @@ def phase_kernel_int8() -> float:
             worst = max(worst, err)
             del got, want
         launched = I8.conv3d_int8_cuda.launches - before
-        case_ok = all(o["equal"] for o in outputs.values()) and launched == 3
+        on_path = I8.conv3d_int8_cuda.path_launches[chosen["path"]] - before_path
+        others = {}
+        for path in ("ring", "ring_cluster"):
+            if path == chosen["path"] or I8.map_layout(shape) is None:
+                continue
+            forced = I8.launch_plan(shape, co, stride, pads, None, path=path)
+            got = I8.launch(xq, wq, stride, pads, None, None, forced)
+            torch.cuda.synchronize()
+            err = float((got.double() - acc.double()).abs().max())
+            others[path] = {"equal": bool(torch.equal(got, acc)), "max_abs_err": err,
+                            "plan": {k: forced[k] for k in I8.PLAN_FIELDS}}
+            worst = max(worst, err)
+            del got
+        case_ok = (all(o["equal"] for o in outputs.values()) and launched == 3 and on_path == 3
+                   and all(o["equal"] for o in others.values()))
         emit(phase="kernel", kernel="conv3d_int8", case=name, input=list(shape), co=co,
-             stride=stride, pads=pads, output=list(acc.shape),
-             plan=I8.launch_plan(shape, co, stride, pads, torch.float32),
-             largest_sum=int(acc.abs().max()), outputs=outputs, launches=launched, ok=case_ok)
+             stride=stride, pads=pads, output=list(acc.shape), path=chosen["path"],
+             plan=chosen, largest_sum=int(acc.abs().max()), outputs=outputs,
+             other_paths_int32=others, launches=launched, ok=case_ok)
         ok = ok and case_ok
         del xq, wq, acc
     torch.cuda.empty_cache()
@@ -2402,15 +2429,18 @@ def int8_bound_ms(shape, co, stride, out_bytes: int, kind: str):
 
 def phase_timing_int8(kind):
     """Device times of the int8 conv kernel at every shape class of the flagship forward
-    (INT8_MAIN_SHAPES), with fp32 and bf16 output, beside its bound, the plain version's
-    time (fp32) and, as a yardstick, cuDNN's float conv of the same shape in the output's
-    dtype (the port's float conv, layers._padded_conv, with deterministic algorithms and
-    TF32 off): the conv that the int8 route replaces, not the same function. Returns the
-    kernel, plain, bound and cuDNN ms of one fp32 flagship forward, and what bounds most of
-    that forward's bound (a class of its own may be bound by the other)."""
+    (INT8_MAIN_SHAPES), with fp32 and bf16 output, beside its bound, an empty launch of the
+    plan's grid (the same blocks, shared memory and cluster), the plain version's time
+    (fp32) and, as a yardstick, cuDNN's float conv of the same shape in the output's dtype
+    (the port's float conv, layers._padded_conv, with deterministic algorithms and TF32
+    off): the conv that the int8 route replaces, not the same function. In fp32 the other
+    ring path (ring against ring_cluster, forced) is timed beside the planner's choice:
+    the times that set the planner's rule. Returns the kernel, plain, bound and cuDNN ms of
+    one fp32 flagship forward, and what bounds most of that forward's bound (a class of its
+    own may be bound by the other)."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
-    totals = dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_float_ms"), 0.0)
+    totals = dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_float_ms", "empty_launch_ms"), 0.0)
     bound_ms_by = {"bytes": 0.0, "operations": 0.0}
     scale = torch.tensor(INT8_SCALE, device="cuda")
     for key, n in INT8_MAIN_SHAPES.items():
@@ -2419,8 +2449,18 @@ def phase_timing_int8(kind):
         nbuf = max(2, math.ceil(200e6 / math.prod(shape)))
         bufs = [int8_inputs(shape, co, seed=800 + i) for i in range(nbuf)]
         for out_dtype in (torch.float32, torch.bfloat16):
+            chosen = I8.launch_plan(shape, co, stride, pads, out_dtype)
             k_ms = device_ms(lambda x, w: I8.conv3d_int8_cuda(x, w, stride, pads, scale, out_dtype),
                              bufs, 20)
+            e_ms = device_ms(lambda x, w: I8.empty_launch(x, co, stride, pads, out_dtype, chosen),
+                             bufs, 50)
+            other = None
+            if out_dtype == torch.float32:
+                path = "ring" if chosen["path"] == "ring_cluster" else "ring_cluster"
+                forced = I8.launch_plan(shape, co, stride, pads, out_dtype, path=path)
+                other = {"path": path, "plan": {k: forced[k] for k in I8.PLAN_FIELDS},
+                         "kernel_ms": device_ms(lambda x, w: I8.launch(x, w, stride, pads, scale,
+                                                                       out_dtype, forced), bufs, 20)}
             floats = [(x.to(out_dtype), w.to(out_dtype)) for x, w in bufs[:2]]
             c_ms = device_ms(lambda x, w: L._padded_conv(x, w, None, stride, 1, pads), floats, 20)
             del floats
@@ -2431,29 +2471,43 @@ def phase_timing_int8(kind):
             b_ms, b_by = int8_bound_ms(shape, co, stride, out_dtype.itemsize, kind)
             emit(phase="timing", what="conv3d_int8", input=list(shape), co=co, stride=stride,
                  out_dtype=str(out_dtype).split(".")[-1], launches_per_forward=n,
-                 plan=I8.launch_plan(shape, co, stride, pads, out_dtype), kernel_ms=k_ms,
-                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, kernel_over_bound=k_ms / b_ms,
-                 cudnn_float_ms=c_ms, buffers=nbuf, library_ms=None,
+                 path=chosen["path"], plan=chosen, kernel_ms=k_ms, empty_launch_ms=e_ms,
+                 other_path=other, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                 kernel_over_bound=k_ms / b_ms, cudnn_float_ms=c_ms, buffers=nbuf,
+                 library_ms=None,
                  library="none: PyTorch has no int8 conv3d with int32 sums; cudnn_float_ms is "
                          "the float conv of the same shape that the int8 route replaces")
             if out_dtype == torch.float32:
                 for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
-                             ("cudnn_float_ms", c_ms)):
+                             ("cudnn_float_ms", c_ms), ("empty_launch_ms", e_ms)):
                     totals[k] += n * v
                 bound_ms_by[b_by] += n * b_ms
         del bufs
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
+    emit(phase="timing", what="conv3d_int8 per fp32 flagship forward", **totals)
     return totals, max(bound_ms_by, key=bound_ms_by.get)
 
 
-def phase_forward_int8(model, images, cams, cfg) -> int:
+def int8_expected_paths() -> dict:
+    """Launches per path of one flagship int8mxu forward, from the planner at the card's
+    limits (every INT8_MAIN_SHAPES class at its count)."""
+    paths = dict.fromkeys(I8.PATHS, 0)
+    for key, n in INT8_MAIN_SHAPES.items():
+        shape, co, stride = key[:5], key[5], key[6]
+        paths[I8.launch_plan(shape, co, stride, int8_pads(shape, stride))["path"]] += n
+    return paths
+
+
+def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     """The flagship forward under act_quant="int8mxu" (deterministic cuDNN): every qin conv
-    on the int8 kernel, counted from 0 over this forward (INT8_MAIN_SHAPES), the soft-argmin
+    on the int8 kernel, counted from 0 over this forward by shape (INT8_MAIN_SHAPES) and by
+    path (as the planner says for each class: none generic), the soft-argmin
     kernel's launches as in the fp32 forward (MAIN_SHAPES), shapes and finiteness, seconds
     and peak memory of this first forward, and how far it moves the depth from the
     unquantized forward's (no bound: the noise images' softmax over D is flat, see
-    phase_quant, which also times it in turns)."""
+    phase_quant, which also times it in turns). Returns the int8 launches in total and by
+    path."""
     mxu = cfg.replace(act_quant="int8mxu")
     torch.backends.cudnn.deterministic = True
     torch.cuda.synchronize()
@@ -2466,6 +2520,7 @@ def phase_forward_int8(model, images, cams, cfg) -> int:
     seconds = time.perf_counter() - t0
     launches = I8.conv3d_int8_cuda.launches
     by_shape = dict(I8.conv3d_int8_cuda.shape_launches)
+    by_path = dict(I8.conv3d_int8_cuda.path_launches)
     softargmin_by_shape = dict(S.softargmin_cuda.shape_launches)
     peak = torch.cuda.max_memory_allocated()
     B, N, H, W = 1, cfg.view_num, cfg.max_h, cfg.max_w
@@ -2481,11 +2536,14 @@ def phase_forward_int8(model, images, cams, cfg) -> int:
     moved = {k: {"mean_planes": float((out[k] - plain[k]).abs().mean()) / interval,
                  "max_planes": float((out[k] - plain[k]).abs().max()) / interval}
              for k in ("depth", "depth_agg_initial", "depth_views")}
+    expected_paths = int8_expected_paths()
     ok = (not bad and not nonfinite and by_shape == INT8_MAIN_SHAPES
-          and launches == INT8_EXPECTED_LAUNCHES and softargmin_by_shape == MAIN_SHAPES)
+          and launches == INT8_EXPECTED_LAUNCHES and softargmin_by_shape == MAIN_SHAPES
+          and by_path == expected_paths and by_path["generic"] == 0)
     emit(phase="forward", act_quant="int8mxu", int8_launches=launches,
          expected_int8_launches=INT8_EXPECTED_LAUNCHES,
          int8_launches_by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()},
+         int8_launches_by_path=by_path, expected_int8_launches_by_path=expected_paths,
          softargmin_launches_by_shape=shape_counts(softargmin_by_shape), bad_shapes=bad,
          nonfinite=nonfinite, seconds_first=seconds, peak_memory_bytes=peak,
          moved_from_unquantized=moved, ok=ok)
@@ -2493,13 +2551,16 @@ def phase_forward_int8(model, images, cams, cfg) -> int:
         raise AssertionError(f"int8mxu forward outputs wrong: shapes {bad}, non-finite {nonfinite}")
     if by_shape != INT8_MAIN_SHAPES or launches != INT8_EXPECTED_LAUNCHES:
         raise AssertionError(f"int8 conv launches {by_shape}, expected {INT8_MAIN_SHAPES}")
+    if by_path != expected_paths or by_path["generic"]:
+        raise AssertionError(f"int8 conv launches by path {by_path}, expected {expected_paths}")
     if softargmin_by_shape != MAIN_SHAPES:
         raise AssertionError(f"soft-argmin launches under int8mxu {softargmin_by_shape}")
-    return launches
+    return launches, by_path
 
 
-def phase_int8_only(kind):
-    """`--only int8`: the kernel checks, the flagship int8mxu forward and the timings."""
+def phase_int8_only(kind, baseline=None):
+    """`--only int8`: the kernel checks, the flagship int8mxu forward and its profile, the
+    timings; with a baseline checkout, its int8 kernel in turns with this one."""
     phase_kernel_int8()
     cfg = PipelineConfig()
     images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
@@ -2510,19 +2571,59 @@ def phase_int8_only(kind):
     del model
     torch.cuda.empty_cache()
     phase_timing_int8(kind)
+    if baseline:
+        phase_int8_turns(load_baseline(baseline, "int8_conv"), baseline)
 
 
-def load_baseline(root: str):
-    """atvsnet_torch/ops/softargmin.py of another checkout (say the parent commit unpacked
-    under build/), loaded beside this one under its own name; it builds its own library
-    into that checkout's build/ directory."""
+def load_baseline(root: str, module: str = "softargmin"):
+    """atvsnet_torch/ops/<module>.py of another checkout (say the parent commit unpacked
+    under build/), loaded beside this one under its own name. Its sources and library are
+    that checkout's (the module finds them through this tree's ops.nvcc, so they are set
+    here): it builds its own library into that checkout's build/ directory."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "baseline_softargmin", os.path.join(root, "atvsnet_torch", "ops", "softargmin.py"))
+    ops = os.path.join(root, "atvsnet_torch", "ops")
+    spec = importlib.util.spec_from_file_location(f"baseline_{module}", os.path.join(ops, f"{module}.py"))
     base = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(base)
+    base.SOURCE = Path(root, "atvsnet_torch", "csrc", base.SOURCE.name).resolve()
+    base.LIBRARY = Path(root, "build", "atvsnet_torch", base.LIBRARY.name).resolve()
     base.build(force=True)
     return base
+
+
+def phase_int8_turns(base, root: str):
+    """The int8 conv kernel of this tree against `base`'s (load_baseline of ops/int8_conv)
+    on the same inputs in turns (base, this, this, base), at every INT8_MAIN_SHAPES class,
+    fp32 and bf16 out; and the sum of each over one fp32 flagship forward."""
+    scale = torch.tensor(INT8_SCALE, device="cuda")
+    forward = {"base": 0.0, "this": 0.0}
+    for key, n in INT8_MAIN_SHAPES.items():
+        shape, co, stride = key[:5], key[5], key[6]
+        pads = int8_pads(shape, stride)
+        nbuf = max(2, math.ceil(200e6 / math.prod(shape)))
+        bufs = [int8_inputs(shape, co, seed=900 + i) for i in range(nbuf)]
+        for out_dtype in (torch.float32, torch.bfloat16):
+            fns = {"base": lambda x, w: base.conv3d_int8_cuda(x, w, stride, pads, scale, out_dtype),
+                   "this": lambda x, w: I8.conv3d_int8_cuda(x, w, stride, pads, scale, out_dtype)}
+            want = base.conv3d_int8_cuda(*bufs[0], stride, pads, scale, out_dtype)
+            same = bool(torch.equal(I8.conv3d_int8_cuda(*bufs[0], stride, pads, scale, out_dtype), want))
+            ms = {"base": [], "this": []}
+            for who in ("base", "this", "this", "base"):
+                ms[who].append(device_ms(fns[who], bufs, 20))
+            emit(phase="timing", what="conv3d_int8", turns="base, this, this, base", baseline=root,
+                 input=list(shape), co=co, stride=stride, out_dtype=str(out_dtype).split(".")[-1],
+                 path=I8.launch_plan(shape, co, stride, pads, out_dtype)["path"],
+                 base_ms=ms["base"], this_ms=ms["this"], equal_to_base=same,
+                 this_over_base=sum(ms["this"]) / sum(ms["base"]))
+            if not same:
+                raise AssertionError(f"the int8 kernel differs from the baseline's at {key}")
+            if out_dtype == torch.float32:
+                for who in forward:
+                    forward[who] += n * sum(ms[who]) / 2
+        del bufs
+        torch.cuda.empty_cache()
+    emit(phase="timing", what="conv3d_int8 per fp32 flagship forward", turns="base, this, this, base",
+         baseline=root, base_ms=forward["base"], this_ms=forward["this"])
 
 
 def phase_kernel_turns(base, root: str):
@@ -2801,11 +2902,12 @@ def main() -> int:
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
     ap.add_argument("--baseline", default=None,
-                    help="with --only kernels: the root of another checkout whose kernels are "
-                         "timed in turns with this tree's on the same inputs")
+                    help="with --only kernels or int8: the root of another checkout whose "
+                         "kernels (the soft-argmin's, or the int8 conv's) are timed in turns "
+                         "with this tree's on the same inputs")
     args = ap.parse_args()
-    if args.baseline and not (args.only and "kernels" in args.only):
-        ap.error("--baseline goes with --only kernels")
+    if args.baseline and not (args.only and {"kernels", "int8"} & set(args.only)):
+        ap.error("--baseline goes with --only kernels or --only int8")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     kind = card_kind(name)
@@ -2830,7 +2932,8 @@ def main() -> int:
 
     if args.only:
         for phase in args.only:
-            {"kernels": kernels, "int8": lambda: phase_int8_only(kind), "native": phase_native,
+            {"kernels": kernels, "int8": lambda: phase_int8_only(kind, args.baseline),
+             "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
              "quant": phase_quant, "helpers": phase_helpers,
@@ -2849,7 +2952,7 @@ def main() -> int:
                                    D=cfg.max_d, seed=0)
     model = load_model(SPHERES, cfg, device="cuda")
     launches = phase_forward(model, images, cams, cfg)
-    int8_launches = phase_forward_int8(model, images, cams, cfg)
+    int8_launches, int8_by_path = phase_forward_int8(model, images, cams, cfg)
     totals, bound_by = phase_timing(model, images, cams, cfg, kind)
     bwd_totals, bwd_bound_by = phase_timing_backward(kind)
     split_totals, split_bound_by = phase_timing_split(kind)
@@ -2916,11 +3019,13 @@ def main() -> int:
         **split_totals["backward_stats"], "bound_by": split_bound_by["backward_stats"],
         "library_ms": None,
     }, {
-        "name": "conv3d_int8", "kernel": "conv3d_int8_kernel", "route": "cuda",
+        "name": "conv3d_int8", "kernel": "conv3d_int8_ring_kernel (conv3d_int8_kernel on the "
+                                          "generic path)", "route": "cuda",
         "source": "atvsnet_torch/csrc/int8_conv.cu",
         "replaces": "atvsnet_tpu/nn/layers.py:233 (XLA's int8 convolution under "
                     "act_quant=int8mxu, lines 233-246; not a Pallas kernel)",
-        "launches": int8_launches, "max_abs_err": max_err_int8, "ms": int8_totals["ms"],
+        "launches": int8_launches, "launches_by_path": int8_by_path,
+        "max_abs_err": max_err_int8, "ms": int8_totals["ms"],
         "plain_ms": int8_totals["plain_ms"], "bound_ms": int8_totals["bound_ms"],
         "bound_by": int8_bound_by, "library_ms": None,
         "cudnn_float_ms": int8_totals["cudnn_float_ms"],

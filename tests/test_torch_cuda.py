@@ -3,7 +3,8 @@ without its softmax statistics, the one gradient kernel behind both backward ent
 the depth split's partial forward, its grid's edges and its grid query) on the card, the
 forward, pair_batch, DepthEstimator and training paths that launch them, and the
 consistency fusion. The int8 conv kernel of act_quant="int8mxu" against its plain version
-to the bit, and the int8mxu forward that launches it.
+to the bit, on each of its paths and at the edges of its ring, a plan the kernel refuses,
+and the int8mxu forwards that launch it.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
@@ -571,6 +572,81 @@ def test_int8_conv_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         I.conv3d_int8_cuda(xq[:, :, :, ::2], torch.zeros((8, 8, 3, 3, 3), device=cuda,
                                                          dtype=torch.int8), 1, [(1, 1)] * 3)
+
+
+RING_EDGES = [  # (input, Co, stride, halo, what it exercises)
+    ((1, 1, 12, 16, 8), 8, 1, False),       # Do = 1
+    ((1, 3, 12, 16, 16), 16, 1, False),     # D shorter than the ring
+    ((1, 9, 12, 16, 8), 16, 2, False),      # odd D at stride 2
+    ((1, 45, 16, 32, 8), 8, 1, False),      # D chunk boundaries (asserted below)
+    ((1, 10, 16, 32, 16), 32, 1, True),     # a depth block with its halo, D pads (0, 0)
+    ((1, 9, 16, 32, 16), 16, 2, True),
+    ((1, 4, 9, 20, 8), 8, 1, False),        # ragged last tiles along W and H
+    ((1, 3, 5, 4, 8), 8, 1, False),         # a merged row narrower than the box
+    ((1, 4, 16, 20, 32), 16, 1, False),     # Ci 32 on the 5-D map
+    ((1, 4, 8, 16, 64), 64, 1, False),      # Ci 64, Co 64
+    ((2, 5, 8, 12, 16), 1, 1, False),       # Co 1, B = 2
+]
+
+
+@pytest.mark.parametrize("path", ["ring", "ring_cluster"])
+@pytest.mark.parametrize("shape,co,stride,halo", RING_EDGES)
+def test_int8_ring_paths_at_their_edges(cuda, shape, co, stride, halo, path):
+    """Each ring path, forced, equal to the plain version to the bit in int32, fp32 and
+    bf16 out, at the edges of its ring, chunks and tensor maps."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xq = torch.randint(-127, 128, shape, device=cuda, dtype=torch.int8, generator=g)
+    wq = torch.randint(-127, 128, (co, shape[-1], 3, 3, 3), device=cuda, dtype=torch.int8,
+                       generator=g)
+    pads = [(0, 0) if halo and i == 0 else L._same_pads(n, 3, stride)
+            for i, n in enumerate(shape[1:4])]
+    p = I.launch_plan(shape, co, stride, pads, path=path)
+    if shape == (1, 45, 16, 32, 8):
+        assert p["chunks"] > 1
+    scale = torch.tensor(1.3e-4, device=cuda)
+    for out_dtype in (None, torch.float32, torch.bfloat16):
+        sc = None if out_dtype is None else scale
+        before = I.conv3d_int8_cuda.path_launches[path]
+        got = I.launch(xq, wq, stride, pads, sc, out_dtype, p)
+        torch.cuda.synchronize()
+        assert I.conv3d_int8_cuda.path_launches[path] == before + 1
+        assert torch.equal(got, I.conv3d_int8_torch(xq, wq, stride, pads, sc, out_dtype))
+
+
+def test_int8_plan_the_kernel_refuses_raises(cuda):
+    """No fallback: a plan that the C side does not take raises in the wrapper."""
+    xq = torch.zeros((1, 4, 8, 16, 8), device=cuda, dtype=torch.int8)
+    wq = torch.zeros((8, 8, 3, 3, 3), device=cuda, dtype=torch.int8)
+    pads = [(1, 1)] * 3
+    p = I.plan(xq.shape, 8, 1, pads, path="ring")
+    before = I.conv3d_int8_cuda.launches
+    for bad in (dict(smem_bytes=p["smem_bytes"] + 16), dict(ring=2), dict(chunks=p["chunks"] + 1),
+                dict(tile_w=p["tile_w"] * 2), dict(cluster=3), dict(blocks_per_sm=64)):
+        with pytest.raises(RuntimeError):
+            I.launch(xq, wq, 1, pads, None, None, dict(p, **bad))
+    x6 = torch.zeros((1, 4, 8, 16, 6), device=cuda, dtype=torch.int8)
+    with pytest.raises(RuntimeError):   # no tensor map describes Ci 6
+        I.launch(x6, torch.zeros((8, 6, 3, 3, 3), device=cuda, dtype=torch.int8), 1, pads,
+                 None, None, p)
+    assert I.conv3d_int8_cuda.launches == before
+
+
+def test_int8mxu_flagship_forward_runs_on_the_ring_paths(cuda):
+    """The flagship forward's 196 int8 launches by shape, all on the ring paths."""
+    from chip_smoke import INT8_MAIN_SHAPES, int8_pads
+    cfg = PipelineConfig(act_quant="int8mxu")
+    images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
+                                   D=cfg.max_d, seed=0)
+    model = load_model(SPHERES, cfg, device="cuda")
+    I.reset_launch_counts()
+    with torch.no_grad():
+        multi_view_forward(model, images, cams, cfg)
+    torch.cuda.synchronize()
+    assert I.conv3d_int8_cuda.shape_launches == INT8_MAIN_SHAPES
+    paths = I.conv3d_int8_cuda.path_launches
+    assert paths["generic"] == 0 and paths["ring"] + paths["ring_cluster"] == 196
+    for key, n in INT8_MAIN_SHAPES.items():
+        assert I.plan(key[:5], key[5], key[6], int8_pads(key[:5], key[6]))["path"] != "generic"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
