@@ -1,14 +1,18 @@
 """Typed configuration for the whole pipeline and for training (the port of
 atvsnet_tpu/config.py).
 
-Same fields and validation as atvsnet_tpu.config.PipelineConfig, minus two knobs that
-only mean something on a TPU: fp32_precision (the MXU's pass count) and scoped_vmem_kib
-(the Pallas kernel's VMEM budget). The quantization (act_quant none|int8|int8s|int8mxu,
-act_quant_range, warp_quant none|int8) is ported: the JAX package reads it from a
-trace-scoped policy (atvsnet_tpu/numerics.py), the port passes it down explicitly
-(nn.layers.ActQuant, geometry.warp.plane_sweep_warp); int8mxu's int8 convolutions run on
-a CUDA kernel (ops.int8_conv). The port runs true fp32 for compute_dtype="float32": TF32
-is off for both matmuls and cuDNN convolutions (models.tvsnet.prepare_inputs).
+Same fields and validation as atvsnet_tpu.config.PipelineConfig, minus one knob that
+only means something on a TPU: scoped_vmem_kib (the Pallas kernel's VMEM budget). The
+numerics fields are ported: the JAX package reads them from a trace-scoped policy
+(atvsnet_tpu/numerics.py), the port passes them down explicitly.
+  * act_quant (none|int8|int8s|int8mxu), act_quant_range and warp_quant (none|int8) as
+    nn.layers.ActQuant and geometry.warp.plane_sweep_warp's quant; int8mxu's int8
+    convolutions run on a CUDA kernel (ops.int8_conv);
+  * fp32_precision (highest|high|default), the TPU's bf16 pass count for convolutions and
+    matmuls with a float32 operand, as the `precision` argument of every nn.layers leaf
+    (ops.fp32_passes: full fp32 with TF32 off; three bf16 passes; one). "high" and
+    "default" run on the TF32 tensor cores on pre-rounded operands; each leaf call scopes
+    the TF32 flags itself, so nothing process-wide changes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _SOFTARGMIN_IMPLS = ("auto", "cuda", "torch")
 ACT_QUANT_MODES = ("none", "int8", "int8s", "int8mxu")
 WARP_QUANT_MODES = ("none", "int8")
+FP32_PRECISION_MODES = ("highest", "high", "default")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +77,12 @@ class PipelineConfig:
     act_quant: str = "none"
     act_quant_range: float = 6.0
     warp_quant: str = "none"
+    # The TPU's pass count for convolutions and matmuls whose operand is float32 (bf16 and
+    # the int8mxu convs are untouched, and so are geometry and fusion, which stay full
+    # fp32): "highest" full fp32 (6 bf16 passes on the TPU), "high" a_hi b_hi + a_hi b_lo +
+    # a_lo b_hi with a_hi = bf16(a), a_lo = bf16(a - a_hi) and fp32 sums (3 passes),
+    # "default" bf16-rounded operands with fp32 sums (1 pass). Forward and both gradients.
+    fp32_precision: str = "highest"
 
     # --- fusion (reference depth_fusion.py defaults) ---
     prob_threshold: float = 0.8
@@ -106,6 +117,10 @@ class PipelineConfig:
         if self.warp_quant not in WARP_QUANT_MODES:
             raise ValueError(
                 f"warp_quant={self.warp_quant!r}: expected one of {'|'.join(WARP_QUANT_MODES)}")
+        if self.fp32_precision not in FP32_PRECISION_MODES:
+            raise ValueError(
+                f"fp32_precision={self.fp32_precision!r}: expected one of "
+                f"{'|'.join(FP32_PRECISION_MODES)}")
         if self.softargmin_impl not in _SOFTARGMIN_IMPLS:
             raise ValueError(
                 f"softargmin_impl must be one of {_SOFTARGMIN_IMPLS}, got {self.softargmin_impl!r}"

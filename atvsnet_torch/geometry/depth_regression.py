@@ -18,6 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from atvsnet_torch.ops.fp32_passes import tf32
 from atvsnet_torch.ops.softargmin import finite_or_zero, softargmin, sweep
 
 
@@ -46,6 +47,7 @@ def _matrix(out_size: int, in_size: int, device) -> torch.Tensor:
     return torch.from_numpy(_align_corners_matrix(out_size, in_size)).to(device)
 
 
+@tf32(False)
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize (B, H, W, C) -> (B, out_h, out_w, C), align_corners=True bilinear, in fp32."""
     B, H, W, C = x.shape

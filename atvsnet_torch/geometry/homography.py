@@ -3,7 +3,8 @@
     H_d = K_r R_r (I - c_rel n_f^T * s(d)) R_l^T K_l^{-1}
 
 with s(d) = d for inverse-depth sweeps and 1/d otherwise, c_rel = c_r - c_l and n_f the
-fronto-parallel plane normal (third row of R_l). All camera math is float32.
+fronto-parallel plane normal (third row of R_l). All camera math is float32, TF32 off
+whatever the process's flags say (PipelineConfig.fp32_precision does not reach geometry).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from atvsnet_torch.geometry.cameras import split_cam
+from atvsnet_torch.ops.fp32_passes import tf32
 
 
 def pixel_grid(height: int, width: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -27,6 +29,7 @@ def sweep_depths(depth_start: torch.Tensor, depth_interval: torch.Tensor, depth_
     return depth_start[:, None] + steps[None, :] * depth_interval[:, None]
 
 
+@tf32(False)
 def get_homographies(
     left_cam: torch.Tensor,
     right_cam: torch.Tensor,

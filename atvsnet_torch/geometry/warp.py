@@ -15,6 +15,9 @@ PipelineConfig.warp_quant="int8" stores plane_sweep_warp's bilinear volumes on a
 lattice (`quantize_warp`). Nearest sweeps never quantize, and neither does the fused
 bilinear-and-nearest sweep of the refinement (plane_sweep_warp_with_nearest), as in the
 JAX package, whose _maybe_quant_warp only plane_sweep_warp's bilinear branch calls.
+
+The projective matmuls run in full fp32 with TF32 off (ops.fp32_passes.tf32), as the JAX
+package pins them to HIGHEST whatever fp32_precision says.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from atvsnet_torch.geometry.cameras import split_cam
 from atvsnet_torch.geometry.homography import pixel_grid
+from atvsnet_torch.ops.fp32_passes import tf32
 
 
 def _sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -87,6 +91,7 @@ def interpolate(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return (out, valid) if output_mask else out
 
 
+@tf32(False)
 def _homography_coords(homography: torch.Tensor, height: int, width: int):
     """homography (..., 3, 3) -> x, y sample coords (..., H*W)."""
     grid = pixel_grid(height, width, device=homography.device)
@@ -169,6 +174,7 @@ def plane_sweep_warp_with_nearest(image: torch.Tensor, homographies: torch.Tenso
     )
 
 
+@tf32(False)
 def _relative_projection(left_cam: torch.Tensor, right_cam: torch.Tensor):
     """M = K_r R_r R_l^T K_l^{-1} (B,3,3) and v = K_r (R_r c_l + t_r) (B,3,1).
 
@@ -185,6 +191,7 @@ def _relative_projection(left_cam: torch.Tensor, right_cam: torch.Tensor):
     return M, v
 
 
+@tf32(False)
 def warp_by_depth(input_image: torch.Tensor, left_cam: torch.Tensor, right_cam: torch.Tensor,
                   depth_image: torch.Tensor, inverse_depth: bool = True,
                   method: str = "bilinear", output_mask: bool = False):
@@ -208,6 +215,7 @@ def warp_by_depth(input_image: torch.Tensor, left_cam: torch.Tensor, right_cam: 
     return (out, mask.reshape(B, H, W, 1)) if output_mask else out
 
 
+@tf32(False)
 def transform_depth(left_depth: torch.Tensor, left_cam: torch.Tensor, right_cam: torch.Tensor,
                     inverse_depth: bool = True) -> torch.Tensor:
     """Re-express per-pixel left-camera depths (B, H, W, 1) in the right camera frame.

@@ -65,10 +65,11 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
     depth_views = torch.stack(depth_views)         # (P, B, h, w, 1)
 
     # ---- stage 2: AAM1 ----
-    quant = ActQuant.of(cfg)
-    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, quant=quant)  # (B,D,h,w,C)
+    quant, prec = ActQuant.of(cfg), cfg.fp32_precision
+    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, quant=quant,
+                                     precision=prec)                               # (B,D,h,w,C)
     del filtered_costs
-    prob_agg = aam_output_conv(model, cost_agg, stage=1, quant=quant)              # (B,D,h,w)
+    prob_agg = aam_output_conv(model, cost_agg, stage=1, quant=quant, precision=prec)  # (B,D,h,w)
     conf_agg = None
     if out_prob_map:
         depth_agg, conf_agg = prob2depth(prob_agg, D, depth_start, depth_interval, True, impl=impl)
@@ -95,10 +96,10 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
         refined_probs, refined_costs = torch.stack(refined_probs), torch.stack(refined_costs)
 
     # ---- stage 4: AAM2 + (upsampled) soft-argmin ----
-    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, quant=quant)
+    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, quant=quant, precision=prec)
     del refined_costs
-    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, quant=quant), cfg,
-                         depth_start, depth_interval, out_prob_map, upsample)
+    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, quant=quant, precision=prec),
+                         cfg, depth_start, depth_interval, out_prob_map, upsample)
 
     out = {
         "depth_agg_initial": depth_agg,

@@ -4,9 +4,9 @@
 mirror the JAX tree (fem/conv0_0/w is fem.conv0_0.w). The functions here take it in
 the place of the JAX package's params dict.
 
-The config's quantization reaches the volume ops from here (act_quant as an
-nn.layers.ActQuant, warp_quant as plane_sweep_warp's quant); the AAM functions take the
-ActQuant from their caller. A depth `split`
+The config's numerics reach the leaves from here: act_quant as an nn.layers.ActQuant,
+warp_quant as plane_sweep_warp's quant, fp32_precision as every conv's `precision`; the
+AAM functions take the ActQuant and the precision from their caller. A depth `split`
 (parallel.depth.DepthSplit) makes every volume this rank's block of planes: the sweeps
 warp those planes only, at their global sweep values, while everything plane-indexed
 (homographies, sweep values, the geometric denominator depth_interval * D, the visual
@@ -72,13 +72,9 @@ def init_model(cfg: PipelineConfig, seed: int = 0, device=None) -> ATVSNet:
 def prepare_inputs(model: ATVSNet, images, cams, cfg: PipelineConfig):
     """Images and cams (arrays or tensors) as fp32 tensors on the model's device.
 
-    For compute_dtype float32 this also turns TF32 off for cuDNN convolutions and CUDA
-    matmuls (process-wide): cuDNN convolves fp32 in TF32 by default, while the JAX
-    reference runs its convs and matmuls at full fp32 precision.
+    It sets no process-wide flag: each conv and matmul leaf scopes TF32 for its own call
+    (cfg.fp32_precision, ops.fp32_passes), and the geometry's matmuls keep it off.
     """
-    if cfg.dtype == torch.float32:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     device = next(model.parameters()).device
     return (torch.as_tensor(images, dtype=torch.float32, device=device),
             torch.as_tensor(cams, dtype=torch.float32, device=device))
@@ -93,7 +89,8 @@ def extract_features(model: ATVSNet, images: torch.Tensor, cfg: PipelineConfig,
     """
     B, N = images.shape[:2]
     net = model.fem_shallow if shallow else model.fem
-    out = net(images.reshape((B * N,) + images.shape[2:]).to(cfg.dtype), eps=cfg.bn_eps)
+    out = net(images.reshape((B * N,) + images.shape[2:]).to(cfg.dtype), eps=cfg.bn_eps,
+              precision=cfg.fp32_precision)
     return out.reshape((B, N) + out.shape[1:])
 
 
@@ -162,7 +159,7 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
         ds2, di2 = depth_start.repeat(2), depth_interval.repeat(2)
         homos = get_homographies(cam_a, cam_b, D, ds2, di2, cfg.inverse_depth)
         filtered2, prob2 = model.crm((plane_sweep_warp(src, homos, quant=cfg.warp_quant), dst),
-                                     eps=cfg.bn_eps, quant=quant)
+                                     eps=cfg.bn_eps, quant=quant, precision=cfg.fp32_precision)
         depth2 = prob2depth(prob2, D, ds2, di2, impl=cfg.softargmin_impl)
         return PairOutputs(depth2[:B], prob2[:B], filtered2[:B], depth2[B:])
 
@@ -176,11 +173,12 @@ def tvsnet_base(model: ATVSNet, ref_feature, view_feature, ref_cam, view_cam,
 
     warped = sweep(view_feature, ref_cam, view_cam)
     filtered_cost, prob = model.crm((warped, ref_feature), eps=cfg.bn_eps, quant=quant,
-                                    split=split)
+                                    split=split, precision=cfg.fp32_precision)
     depth = regress(prob) if ref_depth else None
 
     warped_v = sweep(ref_feature, view_cam, ref_cam)
-    _, prob_view = model.crm((warped_v, view_feature), eps=cfg.bn_eps, quant=quant, split=split)
+    _, prob_view = model.crm((warped_v, view_feature), eps=cfg.bn_eps, quant=quant, split=split,
+                             precision=cfg.fp32_precision)
     return PairOutputs(depth, prob, filtered_cost, regress(prob_view))
 
 
@@ -261,7 +259,7 @@ def refinement(model: ATVSNet, depth_ref, depth_view, ref_cam, view_cam, shallow
                  torch.cat([geo_err.to(dt), depth_ref.to(dt)], dim=-1), F)
     return model.refine(photo_group, geo_group, prob_vol[..., None].to(dt),
                         vis_hull[..., None].to(dt), eps=cfg.bn_eps, quant=ActQuant.of(cfg),
-                        split=split)
+                        split=split, precision=cfg.fp32_precision)
 
 
 def tvsnet_refine(model: ATVSNet, depth_ref, depth_view, prob_vol, filtered_cost, ref_cam,
@@ -277,37 +275,42 @@ def tvsnet_refine(model: ATVSNet, depth_ref, depth_view, prob_vol, filtered_cost
 
 def aam_aggregate_stacked(model: ATVSNet, cost_volumes: torch.Tensor, stage: int,
                           group: Optional[dist.ProcessGroup] = None, split=None,
-                          quant: Optional[ActQuant] = None) -> torch.Tensor:
+                          quant: Optional[ActQuant] = None,
+                          precision: str = "highest") -> torch.Tensor:
     """AAM over the view-leading (P, B, D, h, w, C) stack; stage 1 = AAM1, 2 = AAM2. With a
     'view' group, the stack holds this rank's pairs and AAM runs over the group's; with a
     depth split, D holds this rank's planes. quant: ActQuant.of(cfg), whose "int8mxu" runs
-    the AAM's conv on int8 operands."""
+    the AAM's conv on int8 operands; precision: cfg.fp32_precision."""
     return attention_aggregate_stacked(model.aam1_att if stage == 1 else model.aam2_att,
-                                       cost_volumes, group, split, quant)
+                                       cost_volumes, group, split, quant, precision)
 
 
 def aam_output_conv(model: ATVSNet, agg_cost: torch.Tensor, stage: int,
-                    split=None, quant: Optional[ActQuant] = None) -> torch.Tensor:
+                    split=None, quant: Optional[ActQuant] = None,
+                    precision: str = "highest") -> torch.Tensor:
     if stage == 1:
-        return output_conv(model.aam1_out, "attention_prob_vol", agg_cost, split, quant)
-    return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost, split, quant)
+        return output_conv(model.aam1_out, "attention_prob_vol", agg_cost, split, quant,
+                           precision)
+    return output_conv(model.aam2_out, "attention_prob_vol_refine", agg_cost, split, quant,
+                       precision)
 
 
 def aam_aggregate(model: ATVSNet, cost_volumes: torch.Tensor, stage: int,
-                  quant: Optional[ActQuant] = None) -> torch.Tensor:
+                  quant: Optional[ActQuant] = None, precision: str = "highest") -> torch.Tensor:
     """AAM over the view-trailing (B, D, h, w, C, P) per-pair volumes -> (B, D, h, w, C);
     stage 1 = AAM1, 2 = AAM2 (reference model.py:445-468)."""
     return attention_aggregate(model.aam1_att if stage == 1 else model.aam2_att, cost_volumes,
-                               quant)
+                               quant, precision)
 
 
 def cost_volume_aggregation(model: ATVSNet, cost_volumes: torch.Tensor, stage: int = 1,
-                            keepchannel: bool = False,
-                            quant: Optional[ActQuant] = None) -> torch.Tensor:
+                            keepchannel: bool = False, quant: Optional[ActQuant] = None,
+                            precision: str = "highest") -> torch.Tensor:
     """aam_aggregate, then (unless keepchannel) the stage's 1-channel output conv:
     (B, D, h, w, C) with keepchannel, else (B, D, h, w) (reference model.py:445-468)."""
-    agg = aam_aggregate(model, cost_volumes, stage, quant)
-    return agg if keepchannel else aam_output_conv(model, agg, stage, quant=quant)
+    agg = aam_aggregate(model, cost_volumes, stage, quant, precision)
+    return agg if keepchannel else aam_output_conv(model, agg, stage, quant=quant,
+                                                   precision=precision)
 
 
 @torch.no_grad()

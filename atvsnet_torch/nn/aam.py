@@ -18,6 +18,7 @@ exchange halos; the softmax over views is per plane and needs no collective over
 `quant` (nn.layers.ActQuant): under "int8mxu" the [unique | shared] conv and the output
 conv run on int8 operands (qin, as in the JAX package): their inputs are the CRM's or the
 refinement's output volumes, sums of two stored links, and the softmax-convex mix of them.
+`precision` (PipelineConfig.fp32_precision) reaches every conv (nn.layers).
 
 The pipeline aggregates the view-leading stack (attention_aggregate_stacked). The
 view-trailing (B, D, h, w, C, N) forms (attention_activation, attention_aggregate) and
@@ -67,53 +68,58 @@ class OutputConv(tnn.Module):
 
 
 def _unique_shared(att: Attention, x: torch.Tensor, split=None,
-                   quant: Optional[L.ActQuant] = None):
+                   quant: Optional[L.ActQuant] = None, precision: str = "highest"):
     """relu(conv3d(x_i, W_unique)) and relu(conv3d(x_i, W_shared)) of every view of the
     view-leading stack x (N, B, D, h, w, C), each shaped as x."""
     N, B, C = x.shape[0], x.shape[1], x.shape[-1]
     xv = x.reshape((N * B,) + x.shape[2:])
     # [unique | shared] stacked on the output-channel axis: one conv for both
     w_cat = torch.cat([att.weight_unique, att.weight_shared], dim=0)
-    both = L.conv(xv, w_cat, relu=True, split=split, quant=quant, qin=True)
+    both = L.conv(xv, w_cat, relu=True, split=split, quant=quant, qin=True, precision=precision)
     both = both.reshape(x.shape[:-1] + (2 * C,))
     return both[..., :C], both[..., C:]
 
 
 def attention_activation(att: Attention, x: torch.Tensor,
-                         quant: Optional[L.ActQuant] = None) -> torch.Tensor:
+                         quant: Optional[L.ActQuant] = None,
+                         precision: str = "highest") -> torch.Tensor:
     """View-trailing stack (B, D, h, w, C, N) -> the per-view activations a_i, (B, D, h, w,
     C, N)."""
-    unique, shared = _unique_shared(att, x.movedim(-1, 0), quant=quant)
+    unique, shared = _unique_shared(att, x.movedim(-1, 0), quant=quant, precision=precision)
     return (unique - shared + shared.sum(dim=0, keepdim=True)).movedim(0, -1)
 
 
 def attention_aggregate(att: Attention, x: torch.Tensor,
-                        quant: Optional[L.ActQuant] = None) -> torch.Tensor:
+                        quant: Optional[L.ActQuant] = None,
+                        precision: str = "highest") -> torch.Tensor:
     """View-trailing stack (B, D, h, w, C, N) -> (B, D, h, w, C): the fp32 softmax over
     views of the activations weights the views' sum."""
-    score = torch.softmax(attention_activation(att, x, quant).to(torch.float32), dim=-1)
+    score = torch.softmax(attention_activation(att, x, quant, precision).to(torch.float32),
+                          dim=-1)
     return torch.sum(score.to(x.dtype) * x, dim=-1)
 
 
-def attention_activation_2d(att: Attention2D, x: torch.Tensor) -> torch.Tensor:
+def attention_activation_2d(att: Attention2D, x: torch.Tensor,
+                            precision: str = "highest") -> torch.Tensor:
     """2D variant over (B, H, W, C, N) stacks (reference network.py:411-478): two 2D convs
     with relu, one per weight."""
     B, H, W, C, N = x.shape
     xv = x.movedim(-1, 0).reshape(N * B, H, W, C)
-    unique = L.conv(xv, att.weight_unique, relu=True).reshape(N, B, H, W, C)
-    shared = L.conv(xv, att.weight_shared, relu=True).reshape(N, B, H, W, C)
+    unique = L.conv(xv, att.weight_unique, relu=True, precision=precision).reshape(N, B, H, W, C)
+    shared = L.conv(xv, att.weight_shared, relu=True, precision=precision).reshape(N, B, H, W, C)
     return (unique - shared + shared.sum(dim=0, keepdim=True)).movedim(0, -1)
 
 
 def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
                                 group: Optional[dist.ProcessGroup] = None,
-                                split=None, quant: Optional[L.ActQuant] = None) -> torch.Tensor:
+                                split=None, quant: Optional[L.ActQuant] = None,
+                                precision: str = "highest") -> torch.Tensor:
     """View-leading stack (N, B, D, h, w, C) -> (B, D, h, w, C).
 
     With a `group`, x holds this rank's views and the result is over the group's views.
     With a depth `split`, D holds this rank's planes.
     """
-    unique, shared = _unique_shared(att, x, split, quant)
+    unique, shared = _unique_shared(att, x, split, quant, precision)
     if group is None:
         act = (unique - shared + shared.sum(dim=0, keepdim=True)).to(torch.float32)
         score = torch.softmax(act, dim=0)
@@ -131,7 +137,8 @@ def attention_aggregate_stacked(att: Attention, x: torch.Tensor,
 
 
 def output_conv(module: OutputConv, name: str, cost_volume: torch.Tensor,
-                split=None, quant: Optional[L.ActQuant] = None) -> torch.Tensor:
+                split=None, quant: Optional[L.ActQuant] = None,
+                precision: str = "highest") -> torch.Tensor:
     """(B, D, h, w, C) -> (B, D, h, w)."""
     return L.conv(cost_volume, getattr(module, name).w, split=split, quant=quant,
-                  qin=True)[..., 0]
+                  qin=True, precision=precision)[..., 0]

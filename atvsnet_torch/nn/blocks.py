@@ -2,7 +2,8 @@
 
 slim-default semantics: preact = relu(BN_center(x)); conv1 = relu(1x1 + bias);
 conv2 = relu(kxk dilated + bias), fixed padding when strided; conv3 = 1x1 + bias;
-shortcut = identity / 1x1 max-pool / 1x1 conv of preact with bias.
+shortcut = identity / 1x1 max-pool / 1x1 conv of preact with bias. `precision` is
+PipelineConfig.fp32_precision, passed to every conv (nn.layers).
 """
 
 from __future__ import annotations
@@ -35,21 +36,23 @@ class Bottleneck(tnn.Module):
                          if depth != cin else None)
 
     def forward(self, x: torch.Tensor, stride: int = 1, rate: int = 1,
-                eps: float = 1e-3) -> torch.Tensor:
+                eps: float = 1e-3, precision: str = "highest") -> torch.Tensor:
+        p = precision
         preact = L.activate(L.batch_stat_norm(x, eps=eps, beta=self.preact.beta))
         if self.shortcut is not None:
-            shortcut = L.conv(preact, self.shortcut.w, self.shortcut.b, stride=stride)
+            shortcut = L.conv(preact, self.shortcut.w, self.shortcut.b, stride=stride, precision=p)
         elif stride == 1:
             shortcut = x
         else:
             shortcut = L.max_pool_same(x, 1, stride)
-        residual = L.conv(preact, self.conv1.w, self.conv1.b, relu=True)
+        residual = L.conv(preact, self.conv1.w, self.conv1.b, relu=True, precision=p)
         if stride == 1:
-            residual = L.conv(residual, self.conv2.w, self.conv2.b, rate=rate, relu=True)
+            residual = L.conv(residual, self.conv2.w, self.conv2.b, rate=rate, relu=True,
+                              precision=p)
         else:
             residual = L.fixed_pad_conv(residual, self.conv2.w, self.conv2.b,
-                                        stride=stride, rate=rate, relu=True)
-        return shortcut + L.conv(residual, self.conv3.w, self.conv3.b)
+                                        stride=stride, rate=rate, relu=True, precision=p)
+        return shortcut + L.conv(residual, self.conv3.w, self.conv3.b, precision=p)
 
 
 def res_block_names(name: str, num_block: int) -> list[str]:
@@ -69,9 +72,10 @@ def add_res_block(parent: tnn.Module, name: str, cin: int, depth: int, num_block
 
 
 def res_block(parent: tnn.Module, x: torch.Tensor, name: str, num_block: int,
-              stride: int = 1, rate: int = 1, eps: float = 1e-3) -> torch.Tensor:
+              stride: int = 1, rate: int = 1, eps: float = 1e-3,
+              precision: str = "highest") -> torch.Tensor:
     names = res_block_names(name, num_block)
-    y = getattr(parent, names[0])(x, stride=stride, rate=rate, eps=eps)
+    y = getattr(parent, names[0])(x, stride=stride, rate=rate, eps=eps, precision=precision)
     for sub in names[1:]:
-        y = getattr(parent, sub)(y, stride=1, rate=rate, eps=eps)
+        y = getattr(parent, sub)(y, stride=1, rate=rate, eps=eps, precision=precision)
     return y

@@ -49,7 +49,7 @@ class CRM(tnn.Module):
         self.conv_b2_6_2 = L.Conv(3, f, 1, nd=3, generator=generator) if prob_output else None
 
     def forward(self, cost_volume, eps: float = 1e-3, quant: Optional[L.ActQuant] = None,
-                split=None):
+                split=None, precision: str = "highest"):
         """(B, D, h, w, C) -> (filtered cost (B, D, h, w, f), prob (B, D, h, w) or None).
 
         `cost_volume` may be a (warped (B, D, h, w, Cv), ref_feature (B, h, w, Cc)) tuple:
@@ -61,16 +61,17 @@ class CRM(tnn.Module):
         trunk convs and the prob conv run on int8 operands (qin, as in the JAX package):
         their inputs are stored links or sums of two or three of them; only the two block-0
         entry convs see the raw cost volume. split: D holds this rank's planes of a 'depth'
-        mesh axis (parallel.depth), at every level.
+        mesh axis (parallel.depth), at every level. precision: PipelineConfig.fp32_precision,
+        for every conv and transposed conv.
         """
 
         def cbn(name, x, stride=1, qin=True):
             return L.conv_bn(x, getattr(self, name).w, stride=stride, eps=eps, quant=quant,
-                             split=split, qin=qin)
+                             split=split, qin=qin, precision=precision)
 
         def dbn(name, x):
             return L.deconv_bn(x, getattr(self, name).w, stride=2, eps=eps, quant=quant,
-                               split=split)
+                               split=split, precision=precision)
 
         # --- block 0 ---
         if isinstance(cost_volume, tuple):
@@ -82,7 +83,7 @@ class CRM(tnn.Module):
                 # kernel in-channel order is [ref_tile, warped] (the reference's concat)
                 reordered = torch.cat([w[:, Cc:], w[:, :Cc]], dim=1)
                 return L.conv3d_mixed_bn(reordered, warped, ref2d, stride=stride, eps=eps,
-                                         quant=quant, split=split)
+                                         quant=quant, split=split, precision=precision)
 
             b0_1_0 = mixed("conv_b0_1_0", 2)
             b0_0_1 = mixed("conv_b0_0_1", 1)
@@ -127,5 +128,6 @@ class CRM(tnn.Module):
 
         if self.conv_b2_6_2 is None:
             return b2_6_1, None
-        prob = L.conv(b2_6_1, self.conv_b2_6_2.w, split=split, quant=quant, qin=True)
+        prob = L.conv(b2_6_1, self.conv_b2_6_2.w, split=split, quant=quant, qin=True,
+                      precision=precision)
         return b2_6_1, prob[..., 0]  # no relu, no bias

@@ -7,6 +7,8 @@ to a base_filter-channel map at H/4 x W/4.
 
 FEMShallow (ResNetDS2SPP_shallow_f16, atvsnet.py:245-251): 3 bottlenecks at stride 4
 to a 16-channel feature for the refinement stage.
+
+Both take `precision` (PipelineConfig.fp32_precision) for every conv (nn.layers).
 """
 
 from __future__ import annotations
@@ -40,26 +42,28 @@ class FEM(tnn.Module):
         self.fusion0 = L.Conv(3, concat_ch, f * 4, generator=g)
         self.fusion1 = L.Conv(1, f * 4, f, generator=g)
 
-    def forward(self, image: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, eps: float = 1e-3,
+                precision: str = "highest") -> torch.Tensor:
         """(B, H, W, 3) -> (B, H/4, W/4, base_filter)."""
-        x = L.conv_bn(image, self.conv0_0.w, stride=2, eps=eps)
-        x = L.conv_bn(x, self.conv0_1.w, eps=eps)
-        x = L.conv_bn(x, self.conv0_2.w, eps=eps)
-        x = res_block(self, x, "conv0_x", 3, stride=1, rate=1, eps=eps)
-        c1 = res_block(self, x, "conv1_x", 8, stride=2, rate=1, eps=eps)
-        x = res_block(self, c1, "conv2_x", 3, stride=1, rate=2, eps=eps)
-        c3 = res_block(self, x, "conv3_x", 3, stride=1, rate=4, eps=eps)
+        p = precision
+        x = L.conv_bn(image, self.conv0_0.w, stride=2, eps=eps, precision=p)
+        x = L.conv_bn(x, self.conv0_1.w, eps=eps, precision=p)
+        x = L.conv_bn(x, self.conv0_2.w, eps=eps, precision=p)
+        x = res_block(self, x, "conv0_x", 3, stride=1, rate=1, eps=eps, precision=p)
+        c1 = res_block(self, x, "conv1_x", 8, stride=2, rate=1, eps=eps, precision=p)
+        x = res_block(self, c1, "conv2_x", 3, stride=1, rate=2, eps=eps, precision=p)
+        c3 = res_block(self, x, "conv3_x", 3, stride=1, rate=4, eps=eps, precision=p)
 
         h, w = c3.shape[1], c3.shape[2]
         branches = []
         for i, pool in enumerate(_SPP_POOLS):
             b = L.avg_pool_same(c3, pool, pool)
-            b = L.conv_bn(b, getattr(self, f"branch_{i}_conv").w, eps=eps)
+            b = L.conv_bn(b, getattr(self, f"branch_{i}_conv").w, eps=eps, precision=p)
             branches.append(resize_bilinear_align_corners(b, h, w))
 
         x = torch.cat([c1, c3] + branches, dim=-1)
-        x = L.conv_bn(x, self.fusion0.w, eps=eps)
-        return L.conv(x, self.fusion1.w)  # 1x1, no relu, no bias
+        x = L.conv_bn(x, self.fusion0.w, eps=eps, precision=p)
+        return L.conv(x, self.fusion1.w, precision=p)  # 1x1, no relu, no bias
 
 
 class FEMShallow(tnn.Module):
@@ -69,7 +73,9 @@ class FEMShallow(tnn.Module):
         self.global_refine_shallow_feature = L.Conv(1, base_filter, base_filter,
                                                     generator=generator)
 
-    def forward(self, image: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, eps: float = 1e-3,
+                precision: str = "highest") -> torch.Tensor:
         """(B, H, W, 3) -> (B, H/4, W/4, base_filter)."""
-        x = res_block(self, image, "global_refine_conv0_x", 3, stride=4, rate=1, eps=eps)
-        return L.conv(x, self.global_refine_shallow_feature.w)
+        x = res_block(self, image, "global_refine_conv0_x", 3, stride=4, rate=1, eps=eps,
+                      precision=precision)
+        return L.conv(x, self.global_refine_shallow_feature.w, precision=precision)

@@ -17,6 +17,12 @@ Weights are stored in PyTorch's layout: conv (out, in, k...), transpose conv
     a tie evenly; torch.relu gives a tie no gradient. Ties are real here: batch_stat_norm
     maps a channel that is constant over the map to exact zeros.
 
+Every conv, transposed conv and matmul leaf takes `precision` (PipelineConfig.fp32_precision,
+"highest" by default): with a float32 operand it runs in that mode's arithmetic, forward and
+both gradients (ops.fp32_passes: TF32 off for "highest", the bf16 passes on the TF32 tensor
+cores for "high" and "default"), as the JAX package's _precision_for does; a bf16 operand
+runs as before, whatever the mode, and so do the int8mxu convs.
+
 Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
   * quant (ActQuant, PipelineConfig.act_quant): every volume conv_bn / deconv_bn /
     conv3d_mixed_bn output round-trips through an int8 lattice (`quantize_act`, the JAX
@@ -41,6 +47,7 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
+from atvsnet_torch.ops.fp32_passes import pass_conv, pass_conv_transpose, pass_matmul
 from atvsnet_torch.ops.int8_conv import conv3d_int8
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
@@ -74,8 +81,9 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pads,
-                 groups: int = 1):
-    """Channel-last conv with explicit per-axis (beg, end) pads."""
+                 groups: int = 1, precision: str = "highest"):
+    """Channel-last conv with explicit per-axis (beg, end) pads; a float32 x runs in the
+    `precision` mode's arithmetic (ops.fp32_passes.pass_conv)."""
     nd = x.ndim - 2
     xc = _channels_first(x)
     if all(lo == hi for lo, hi in pads):
@@ -83,6 +91,9 @@ def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pa
     else:
         xc = F.pad(xc, [p for lo, hi in reversed(pads) for p in (lo, hi)])
         padding = 0
+    if x.dtype == torch.float32:
+        return _channels_last(pass_conv(xc, w.to(x.dtype), precision, stride, padding, rate,
+                                        groups, None if b is None else b.to(x.dtype)))
     y = _CONV[nd](xc, w.to(x.dtype), None if b is None else b.to(x.dtype),
                   stride=stride, padding=padding, dilation=rate, groups=groups)
     return _channels_last(y)
@@ -90,7 +101,8 @@ def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pa
 
 def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
          stride: int = 1, rate: int = 1, relu: bool = False, split=None,
-         quant: Optional["ActQuant"] = None, qin: bool = False) -> torch.Tensor:
+         quant: Optional["ActQuant"] = None, qin: bool = False,
+         precision: str = "highest") -> torch.Tensor:
     """Rank-dispatching TF-SAME conv on channel-last x; w is (out, in, k...).
 
     split: x is this rank's block of D planes (a 5D volume, a k3 kernel, stride 1 or 2).
@@ -103,7 +115,9 @@ def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     a depth kernel of 3, no bias, rate 1 and stride 1 or 2 runs on int8 operands with int32
     sums (quant_conv_operands), rescaled to x's dtype, where the JAX package does
     (atvsnet_tpu/nn/layers.py:231-233). A split's halo comes first: the quantization is
-    elementwise, so a split and one process give the same bits. Ignored otherwise."""
+    elementwise, so a split and one process give the same bits. Ignored otherwise.
+
+    precision: the fp32_precision mode of a float32 x (not of the int8 route)."""
     if split is not None and x.ndim == 5:
         if w.shape[2] != 3 or rate != 1 or stride not in (1, 2) or x.shape[1] % stride:
             raise ValueError(f"a depth-split conv needs a depth kernel of 3, rate 1 and "
@@ -118,17 +132,18 @@ def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         xq, wq, scale = quant_conv_operands(x, w, quant.range)
         y = conv3d_int8(xq.contiguous(), wq, stride, pads, scale, x.dtype)
     else:
-        y = _padded_conv(x, w, b, stride, rate, pads)
+        y = _padded_conv(x, w, b, stride, rate, pads, precision=precision)
     return activate(y) if relu else y
 
 
 def fixed_pad_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-                   stride: int = 2, rate: int = 1, relu: bool = False) -> torch.Tensor:
+                   stride: int = 2, rate: int = 1, relu: bool = False,
+                   precision: str = "highest") -> torch.Tensor:
     """Explicit-padding strided conv (resnet 'fixed padding', reference network.py:589-595)."""
     k = w.shape[2]
     pad_total = k + (k - 1) * (rate - 1) - 1
     pads = [(pad_total // 2, pad_total - pad_total // 2)] * (x.ndim - 2)
-    y = _padded_conv(x, w, b, stride, rate, pads)
+    y = _padded_conv(x, w, b, stride, rate, pads, precision=precision)
     return activate(y) if relu else y
 
 
@@ -227,16 +242,16 @@ def quant_conv_operands(x: torch.Tensor, w: torch.Tensor, range_: float):
 
 def conv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 1, rate: int = 1,
             relu: bool = True, eps: float = 1e-3, quant: Optional[ActQuant] = None,
-            split=None, qin: bool = False) -> torch.Tensor:
+            split=None, qin: bool = False, precision: str = "highest") -> torch.Tensor:
     """conv -> batch_stat_norm -> relu (reference network.py:172-215) -> quantize_act; qin
-    as in conv."""
-    y = batch_stat_norm(conv(x, w, stride=stride, rate=rate, split=split, quant=quant, qin=qin),
-                        eps=eps, split=split)
+    and precision as in conv."""
+    y = batch_stat_norm(conv(x, w, stride=stride, rate=rate, split=split, quant=quant, qin=qin,
+                             precision=precision), eps=eps, split=split)
     return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 
 def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False,
-           split=None) -> torch.Tensor:
+           split=None, precision: str = "highest") -> torch.Tensor:
     """TF conv{2,3}d_transpose, SAME: the transpose of the SAME strided conv from the
     stride-times larger output. w is PyTorch's transpose layout (in, out, k...).
 
@@ -246,6 +261,9 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
     split (a 5D x, k3 s2): output plane 2i takes inputs i and i - 1, so the block takes
     its left neighbour's last plane (zeros at the global start) and the crop on D starts
     `stride` planes later.
+
+    precision: the fp32_precision mode of a float32 x, the JAX package's vjp of its conv
+    carrying the conv's precision to the transpose.
     """
     nd = x.ndim - 2
     out_sizes = [s * stride for s in x.shape[1:-1]]
@@ -256,15 +274,20 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
                              f"k={w.shape[2]}, stride={stride}")
         begs[0] = _same_pads(out_sizes[0] * split.size, 3, stride)[0] + stride
         x = split.halo(x, left=1, right=0)
-    y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
+    if x.dtype == torch.float32:
+        y = pass_conv_transpose(_channels_first(x), w.to(x.dtype), precision, stride)
+    else:
+        y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
     y = y[(slice(None), slice(None)) + tuple(slice(b, b + o) for b, o in zip(begs, out_sizes))]
     y = _channels_last(y)
     return activate(y) if relu else y
 
 
 def deconv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = True,
-              eps: float = 1e-3, quant: Optional[ActQuant] = None, split=None) -> torch.Tensor:
-    y = batch_stat_norm(deconv(x, w, stride=stride, split=split), eps=eps, split=split)
+              eps: float = 1e-3, quant: Optional[ActQuant] = None, split=None,
+              precision: str = "highest") -> torch.Tensor:
+    y = batch_stat_norm(deconv(x, w, stride=stride, split=split, precision=precision), eps=eps,
+                        split=split)
     return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 
@@ -299,10 +322,14 @@ def l2_pool_same(x: torch.Tensor, pool: int, stride: int) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-          relu: bool = True) -> torch.Tensor:
+          relu: bool = True, precision: str = "highest") -> torch.Tensor:
     """Fully connected layer over the last axis (reference 'fc', network.py:709-716). w is
-    (in, out), as the JAX package holds it: params.py copies 2D arrays unchanged."""
-    y = x @ w.to(x.dtype)
+    (in, out), as the JAX package holds it: params.py copies 2D arrays unchanged. A float32
+    x multiplies in the `precision` mode's arithmetic."""
+    if x.dtype == torch.float32:
+        y = pass_matmul(x, w.to(x.dtype), precision)
+    else:
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return activate(y) if relu else y
@@ -333,24 +360,25 @@ def split_separable_conv2d(x: torch.Tensor, depthwise_w: torch.Tensor,
                            pointwise_w: torch.Tensor,
                            depthwise_b: Optional[torch.Tensor] = None,
                            pointwise_b: Optional[torch.Tensor] = None,
-                           rate: int = 1) -> torch.Tensor:
+                           rate: int = 1, precision: str = "highest") -> torch.Tensor:
     """Depthwise conv -> relu -> 1x1 pointwise conv -> relu (reference
     network.py:218-268; slim adds a bias and a relu to both halves), TF-SAME, the
     depthwise conv dilated by `rate`.
 
     depthwise_w: (1, C, kh, kw), the TF depthwise kernel (kh, kw, C, 1) through
     tf_to_torch; it runs as the grouped conv kernel (C, 1, kh, kw). pointwise_w:
-    (Cout, C, 1, 1).
+    (Cout, C, 1, 1). precision: both halves' fp32_precision mode.
     """
     C = x.shape[-1]
     pads = [_same_pads(s, k, 1, rate) for s, k in zip(x.shape[1:-1], depthwise_w.shape[2:])]
-    y = _padded_conv(x, depthwise_w.transpose(0, 1), depthwise_b, 1, rate, pads, groups=C)
-    return conv(activate(y), pointwise_w, pointwise_b, relu=True)
+    y = _padded_conv(x, depthwise_w.transpose(0, 1), depthwise_b, 1, rate, pads, groups=C,
+                     precision=precision)
+    return conv(activate(y), pointwise_w, pointwise_b, relu=True, precision=precision)
 
 
 def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
                  stride: int = 1, split=None, quant: Optional[ActQuant] = None,
-                 qin: bool = False) -> torch.Tensor:
+                 qin: bool = False, precision: str = "highest") -> torch.Tensor:
     """conv3d over concat([varying, broadcast_D(const2d)], -1) without the broadcast.
 
     The D-constant channels reduce to 2D convs with the kernel summed over its depth
@@ -364,7 +392,9 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
     every rank (see parallel.depth.DepthSplit.halo for why that matters).
 
     quant and qin reach the varying half's conv (conv), as in the JAX package; no caller of
-    either package sets qin here.
+    either package sets qin here. precision reaches both halves; the 2D half's kernel
+    (the sum of its depth taps) is summed in fp32 first and then rounded, as in the JAX
+    package.
     """
     if w.shape[2] != 3:
         raise ValueError("conv3d_mixed needs a depth kernel of 3")
@@ -374,10 +404,10 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
         raise ValueError(f"conv3d_mixed supports stride 1, or 2 on even D; got {stride}, D={D}")
     wc = w[:, Cv:]
     y = conv(varying, w[:, :Cv], stride=stride, split=split, quant=quant,
-             qin=qin)                                            # (B, D', h', w', Cout)
+             qin=qin, precision=precision)                       # (B, D', h', w', Cout)
 
     def conv2(taps):
-        return conv(const2d, sum(wc[:, :, t] for t in taps), stride=stride)
+        return conv(const2d, sum(wc[:, :, t] for t in taps), stride=stride, precision=precision)
 
     mid = conv2((0, 1, 2))[:, None]
     Do = D // stride
@@ -400,9 +430,10 @@ def conv3d_mixed(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
 def conv3d_mixed_bn(w: torch.Tensor, varying: torch.Tensor, const2d: torch.Tensor,
                     stride: int = 1, relu: bool = True, eps: float = 1e-3,
                     quant: Optional[ActQuant] = None, split=None,
-                    qin: bool = False) -> torch.Tensor:
+                    qin: bool = False, precision: str = "highest") -> torch.Tensor:
     y = batch_stat_norm(conv3d_mixed(w, varying, const2d, stride=stride, split=split,
-                                     quant=quant, qin=qin), eps=eps, split=split)
+                                     quant=quant, qin=qin, precision=precision),
+                        eps=eps, split=split)
     return quantize_act(activate(y) if relu else y, quant, nonneg=relu, split=split)
 
 

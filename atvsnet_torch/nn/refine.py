@@ -45,7 +45,7 @@ class RefineNet(tnn.Module):
 
     def forward(self, photo_group, geo_group, prob_vol: torch.Tensor,
                 vis_hull: torch.Tensor, eps: float = 1e-3, quant: Optional[L.ActQuant] = None,
-                split=None):
+                split=None, precision: str = "highest"):
         """All inputs (B, D, h, w, *) -> (cost_residual (B,D,h,w,f), prob_residual (B,D,h,w)).
 
         Structured (broadcast-free) groups, exact equivalents of the reference concats:
@@ -57,17 +57,20 @@ class RefineNet(tnn.Module):
         quantized (the JAX package quantizes its hand-written geo entry too). Under
         "int8mxu" the seven trunk convs and d_cost_vol run on int8 operands (qin): they
         read the concat or sums of stored links; the four entries read the raw groups.
+        precision (PipelineConfig.fp32_precision) as in CRM.forward.
         """
 
         def cbn(name, x, stride=1, qin=True):
             return L.conv_bn(x, self._w(name), stride=stride, eps=eps, quant=quant, split=split,
-                             qin=qin)
+                             qin=qin, precision=precision)
 
         def dbn(name, x):
-            return L.deconv_bn(x, self._w(name), stride=2, eps=eps, quant=quant, split=split)
+            return L.deconv_bn(x, self._w(name), stride=2, eps=eps, quant=quant, split=split,
+                               precision=precision)
 
         def mixed(w, vary, const2d):
-            return L.conv3d_mixed_bn(w, vary, const2d, eps=eps, quant=quant, split=split)
+            return L.conv3d_mixed_bn(w, vary, const2d, eps=eps, quant=quant, split=split,
+                                     precision=precision)
 
         vary, const2d = photo_group
         photo = mixed(self._w("_photo_3dconv"), vary, const2d)
@@ -91,4 +94,5 @@ class RefineNet(tnn.Module):
         c5_0 = dbn("_3dconv5_0", c4_0 + c2_1)
         c6_0 = dbn("_3dconv6_0", c5_0 + c1_1)
         c6_1 = c6_0 + c0_1  # cost residual (B, D, h, w, f)
-        return c6_1, L.conv(c6_1, self._w("d_cost_vol"), split=split, quant=quant, qin=True)[..., 0]
+        return c6_1, L.conv(c6_1, self._w("d_cost_vol"), split=split, quant=quant, qin=True,
+                            precision=precision)[..., 0]

@@ -102,11 +102,12 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
     del outs
 
     # ---- stage 2: AAM1, over the view group ----
-    quant = ActQuant.of(cfg)
+    quant, prec = ActQuant.of(cfg), cfg.fp32_precision
     cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, group=group, split=split,
-                                     quant=quant)
+                                     quant=quant, precision=prec)
     del filtered_costs
-    prob_agg = aam_output_conv(model, cost_agg, stage=1, split=split, quant=quant)
+    prob_agg = aam_output_conv(model, cost_agg, stage=1, split=split, quant=quant,
+                               precision=prec)
     depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=cfg.softargmin_impl,
                            split=split)
 
@@ -127,10 +128,11 @@ def forward_rows(model: ATVSNet, images, cams, cfg: PipelineConfig, mesh: Option
 
     # ---- stage 4: AAM2, over the view group, + soft-argmin ----
     cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, group=group, split=split,
-                                      quant=quant)
+                                      quant=quant, precision=prec)
     del refined_costs
-    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, split=split, quant=quant), cfg,
-                         depth_start, depth_interval, out_prob_map, upsample, split)
+    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, split=split, quant=quant,
+                                         precision=prec),
+                         cfg, depth_start, depth_interval, out_prob_map, upsample, split)
     depth_group = None if split is None else split.group
     refined_probs = gather_blocks(refined_probs, depth_group, dim=2)   # (P, B, D, h, w)
     return {"depth_agg_initial": depth_agg, "depth_views": gather_blocks(depth_views, group),

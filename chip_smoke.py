@@ -48,8 +48,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 statistics at the flagship's fp32 shapes and the train shape in bf16);
                 the int8 conv at each INT8_MAIN_SHAPES class, fp32 and bf16 out, beside its
                 bound, an empty launch of its grid, the other ring path (fp32), the plain
-                version and cuDNN's float conv of the same shape (the conv the int8 route
-                replaces; not the same function)
+                version, the library call (cuDNN's conv with TF32 allowed on the int8 values
+                held as float32: the same sums below 2^24, held to the kernel's to the bit)
+                and cuDNN's float conv with TF32 off (the conv the int8 route replaces)
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket; the
                 same for the int8mxu forward
@@ -120,7 +121,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 backward on depth=2 against one process (loss rtol 1e-4, gradients 5e-3),
                 4 and 4 launches of the two depth-split kernels per rank; (d) the flagship
                 fp32 train step, remat on, on depth=2: seconds and peak memory per rank
- 18. helpers    the JAX package's public helpers that no path calls (camera_center,
+ 18. precision  PipelineConfig.fp32_precision (ops.fp32_passes): (a) every leaf kind at
+                the flagship's shapes (the FEM's first 2D conv at 480x896, a dilated
+                residual conv, CRM 3D convs at stride 1 and 2, the 3D deconv, the AAM conv,
+                a depthwise conv, a dense matmul) in "high" and "default", forward,
+                grad_input and grad_weight, against the float64 plain version of the mode:
+                error over max sum |a||b| within max(2^-20, 4 e), e the "highest" call's
+                own error against the exact product; plain TF32's error beside it must miss
+                that bound on the forward and grad_input; the TF32 flags as before after every call; "highest" equal to
+                the TF32-off call to the bit; forward ms per mode and for plain TF32;
+                (b) the 3-view 64x96 D32 trained forward per mode on the card against the
+                CPU (PRECISION_SMALL_BOUNDS); (c) the flagship forward per mode in turns
+                (deterministic cuDNN): median seconds of 5, peak memory, the cuDNN/cuBLAS
+                ms of one profiled forward and its top kernels (TF32 kernels by name),
+                14 soft-argmin launches each, the depth moved against "highest" on the
+                noise scene and on a rendered scene, the rendered scene's error; (d) one
+                fp32 train step per mode at the train CLI's size: loss and gradients
+                against "highest", seconds, launches
+ 19. helpers    the JAX package's public helpers that no path calls (camera_center,
                 depth_range_from_cams, homography_warp, build_cost_volume, the view-trailing
                 and 2D AAM forms, aam_aggregate, cost_volume_aggregation, l2_pool_same,
                 dense, l2_normalize, split_separable_conv2d), each on the card against the
@@ -139,7 +157,7 @@ Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
 nothing of JAX or of atvsnet_tpu. `--only kernels int8 native fusion eval train parallel
-quant depth helpers` runs just those phases after device and build (kernels: every kernel
+quant depth precision helpers` runs just those phases after device and build (kernels: every kernel
 check and kernel timing above, no model; int8: the int8 conv's checks, the flagship int8mxu
 forward and its profile, the int8 conv's times; depth with the depth-split kernels' checks
 and times): a
@@ -154,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import glob
 import json
 import math
@@ -177,7 +196,7 @@ from atvsnet_torch import native
 from atvsnet_torch.cli import train as train_cli
 from atvsnet_torch.cli.eval_pointcloud import run_eval_pc
 from atvsnet_torch.cli.example import run_example
-from atvsnet_torch.config import PipelineConfig, TrainConfig
+from atvsnet_torch.config import FP32_PRECISION_MODES, PipelineConfig, TrainConfig
 from atvsnet_torch.data import image_io
 from atvsnet_torch.data.pfm import load_pfm
 from atvsnet_torch.data.preprocess import prepare_mvs_sample
@@ -200,6 +219,7 @@ from atvsnet_torch.models.tvsnet import (aam_aggregate, aam_aggregate_stacked, a
                                          refinement, tvsnet_base)
 from atvsnet_torch.nn import aam
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.ops import fp32_passes
 from atvsnet_torch.ops import int8_conv as I8
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
@@ -341,6 +361,23 @@ QUANT_MEAN_DIFF, QUANT_MAX_DIFF = 2e-3, 1e-2
 QUANT_BF16_MODES = {"act int8s + warp int8, bf16": dict(act_quant="int8s", warp_quant="int8",
                                                           compute_dtype="bfloat16"),
                     "act int8mxu, bf16": dict(act_quant="int8mxu", compute_dtype="bfloat16")}
+# The precision phase (PipelineConfig.fp32_precision, ops.fp32_passes). (a) Every leaf kind
+# at the flagship's shapes, forward and both gradients, against its float64 plain version:
+# the error over max sum |a||b| within max(2^-20, 4 e), e the "highest" call's own error
+# against the float64 exact product at the same shape in the same run (the fp32 sums'
+# noise; grad_weight sums over millions of positions); plain TF32's error beside it must
+# exceed that bound on the forward and grad_input (the check tells the modes from TF32).
+# (b) The small trained forward on the card against the CPU per mode: "highest" and
+# "high" at phase_small's fp32 bound
+# (measured on the CPU: "high" moves the trained forward by fp32 noise only), "default" at
+# the CPU test's bound against JAX (tests/test_torch_precision.py: every conv rounds its
+# operands to bf16, and an fp32-noise difference that crosses a rounding tie moves a value
+# by a bf16 step). (c) The flagship forward per mode in turns, (d) a train-size fp32 step
+# per mode: readings, not bounds.
+PRECISION_FLOOR = 2.0 ** -20
+PRECISION_SMALL_BOUNDS = {"highest": (2e-5, 1e-4), "high": (2e-5, 1e-4),
+                          "default": (4e-4, 6e-3)}
+PRECISION_ROUNDS = 5
 # The helpers phase: the JAX package's public helpers that no path calls, each on the card
 # against the same call on the CPU. fp32 with TF32 off, so they differ only in the order
 # of sums: the CPU tests' bound against JAX, 1e-5 of max(1, the largest value); the
@@ -2027,6 +2064,284 @@ def phase_quant():
         raise AssertionError("quant: a quantized flagship forward is not finite")
 
 
+# ---- the precision phase ----
+
+def precision_leaf_cases():
+    """(name, x shape channel-last, w shape, ConvSpec or None for a matmul, pads before the
+    conv (F.pad order) or None): every leaf kind at the flagship's shapes (5 views, 480x896,
+    D=128: the FEM at 480x896 and 120x224, the volumes at (128, 120, 224) and halvings)."""
+    spec = fp32_passes.ConvSpec.of
+    return [
+        ("FEM conv0_0, 2D 3->32 s2", (5, 480, 896, 3), (32, 3, 3, 3), spec(2, 2), (0, 1, 0, 1)),
+        ("FEM dilated residual, 2D 64->64 rate 2", (5, 120, 224, 64), (64, 64, 3, 3),
+         spec(2, 1, 2, 2), None),
+        ("CRM 3D 8->8", (1, 128, 120, 224, 8), (8, 8, 3, 3, 3), spec(3, 1, 1), None),
+        ("CRM 3D 8->16 s2", (1, 128, 120, 224, 8), (16, 8, 3, 3, 3), spec(3, 2),
+         (0, 1, 0, 1, 0, 1)),
+        ("CRM 3D deconv 16->8 s2", (1, 64, 60, 112, 16), (16, 8, 3, 3, 3),
+         spec(3, 2, transposed=True), None),
+        ("AAM 3D 8->16 [unique | shared]", (4, 128, 120, 224, 8), (16, 8, 3, 3, 3),
+         spec(3, 1, 1), None),
+        ("depthwise 2D 64, rate 2", (5, 120, 224, 64), (64, 1, 3, 3), spec(2, 1, 2, 2, 64), None),
+        ("dense 128->32", (5, 120, 224, 128), (128, 32), None, None),
+    ]
+
+
+def precision_leaf(name, x_shape, w_shape, spec, pads, seed) -> tuple[dict, bool]:
+    """One leaf kind in every mode and plain TF32 on the card, held to the float64 plain
+    versions (see PRECISION_FLOOR). Returns its record and whether it held."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(x_shape, device="cuda", generator=g)
+    if spec is not None:
+        x = x.movedim(-1, 1)                               # the model's channels-last views
+        if pads is not None:
+            x = torch.nn.functional.pad(x, pads)
+    w = torch.randn(w_shape, device="cuda", generator=g) * (1.0 / math.prod(w_shape[1:])) ** 0.5
+    if spec is None:
+        def run(mode, a, b):
+            return fp32_passes.pass_matmul(a, b, mode)
+        raw = {"forward": torch.matmul, "grad_input": lambda a, g_, b: g_ @ b.T,
+               "grad_weight": lambda a, g_, b: a.reshape(-1, a.shape[-1]).T @ g_.reshape(
+                   -1, g_.shape[-1])}
+        plain = lambda mode, gr: fp32_passes.matmul_plain(x, w, mode, gr)
+        exact = lambda gr, mag: fp32_passes.matmul_exact(x, w, gr, mag)
+    else:
+        def run(mode, a, b):
+            if spec.transposed:
+                return fp32_passes.pass_conv_transpose(a, b, mode, spec.stride)
+            return fp32_passes.pass_conv(a, b, mode, spec.stride, spec.padding, spec.dilation,
+                                         spec.groups)
+        raw = {"forward": spec.forward, "grad_input": lambda a, g_, b: spec.grad_input(a, g_, b),
+               "grad_weight": lambda a, g_, b: spec.grad_weight(a, g_, b)}
+        plain = lambda mode, gr: fp32_passes.conv_plain(x, w, mode, spec, gr)
+        exact = lambda gr, mag: fp32_passes.conv_exact(x, w, spec, gr, mag)
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    before, flags_kept = flags(), True
+    outs, seconds = {}, {}
+    gr = None
+    for mode in ("highest",) + FP32_PRECISION_MODES[1:]:
+        xr, wr = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+        y = run(mode, xr, wr)
+        flags_kept = flags_kept and flags() == before
+        if gr is None:
+            gr = torch.randn(y.shape, device="cuda", generator=g)
+        y.backward(gr)
+        flags_kept = flags_kept and flags() == before
+        outs[mode] = {"forward": y.detach(), "grad_input": xr.grad, "grad_weight": wr.grad}
+        del y, xr, wr
+        with torch.no_grad():
+            seconds[mode] = device_ms(lambda a, b: run(mode, a, b), [(x, w)], 5)
+    # plain TF32 on the unrounded operands (torch's own "high"): a yardstick, neither mode
+    with fp32_passes.tf32(True):
+        tf32 = {"forward": raw["forward"](x, w), "grad_input": raw["grad_input"](x, gr, w),
+                "grad_weight": raw["grad_weight"](x, gr, w)}
+        seconds["tf32"] = device_ms(raw["forward"], [(x, w)], 5)
+    # "highest" is a call with TF32 off, to the bit (a conv: aten's forward and backward)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if spec is None:
+            off = {"forward": raw["forward"](x, w), "grad_input": raw["grad_input"](x, gr, w),
+                   "grad_weight": raw["grad_weight"](x, gr, w)}
+        else:
+            gx, gw, _ = spec.backward(x, gr, w, [True, True, False])
+            off = {"forward": spec.forward(x, w), "grad_input": gx, "grad_weight": gw}
+            del gx, gw
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    highest_bits = all(torch.equal(outs["highest"][k], off[k]) for k in off)
+    del off
+    scale = {k: float(v.max()) for k, v in exact(gr, True).items()}
+    ref = exact(gr, False)
+
+    def rel(got, want, k):
+        return float((got.double() - want).abs().max()) / scale[k]
+
+    e = {k: rel(outs["highest"][k], ref[k], k) for k in ref}
+    bound = {k: max(PRECISION_FLOOR, 4 * e[k]) for k in ref}
+    row = {"highest": {"vs_exact": e}, "tf32": {"vs_exact": {k: rel(tf32[k], ref[k], k) for k in ref}}}
+    ok = flags_kept and highest_bits
+    for mode in FP32_PRECISION_MODES[1:]:
+        want = plain(mode, gr)
+        err = {k: rel(outs[mode][k], want[k], k) for k in want}
+        tf32_err = {k: rel(tf32[k], want[k], k) for k in want}
+        row[mode] = {"vs_plain": err, "vs_exact": {k: rel(outs[mode][k], ref[k], k) for k in ref},
+                     "tf32_vs_plain": tf32_err}
+        # TF32 must miss the bound where its 10-bit operands show: the forward and
+        # grad_input; a grad_weight sums millions of products whose rounding errors
+        # average out, so TF32's is only reported
+        ok = (ok and all(err[k] <= bound[k] for k in want)
+              and all(tf32_err[k] > bound[k] for k in ("forward", "grad_input")))
+        del want
+    record = {"leaf": name, "x": list(x.shape), "w": list(w.shape),
+              "spec": None if spec is None else dataclasses.asdict(spec), "bound": bound,
+              "errors_over_max_sum_abs": row, "forward_ms": seconds,
+              "flags_restored": flags_kept, "highest_equals_tf32_off": highest_bits, "ok": ok}
+    return record, ok
+
+
+def precision_forward_rows(model, scene, cfg, modes) -> dict:
+    """Depths of each mode's forward on `scene` (deterministic cuDNN)."""
+    return {m: multi_view_forward(model, scene["images"], scene["cams"],
+                                  cfg.replace(fp32_precision=m))["depth"].float().cpu()
+            for m in modes}
+
+
+def conv_kernel_profile(fn) -> dict:
+    """Device ms of one call of fn in cuDNN / cuBLAS kernels (phase_profile's category), the
+    part of it in TF32 tensor-core kernels (a "tf32" in the name), and the top names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    keys = ("conv", "xmma", "gemm", "fft", "Tensor5d", "nchw", "nhwc", "DSE::",
+            "region_transform", "sm90", "sm80", "cutlass")
+    convs = [e for e in events if e.device_type == DeviceType.CUDA
+             and any(k.lower() in e.key.lower() for k in keys)]
+    top = sorted(convs, key=lambda e: getattr(e, attr), reverse=True)[:8]
+    return {"conv_gemm_ms": sum(getattr(e, attr) for e in convs) / 1e3,
+            "tf32_named_ms": sum(getattr(e, attr) for e in convs if "tf32" in e.key.lower()) / 1e3,
+            "top": [{"name": e.key[:100], "device_ms": getattr(e, attr) / 1e3, "calls": e.count}
+                    for e in top]}
+
+
+def phase_precision():
+    """fp32_precision on the card: (a) the leaves against their float64 plain versions at the
+    flagship's shapes, (b) the small trained forward against the CPU per mode, (c) the
+    flagship forward per mode in turns, (d) one train-size fp32 step per mode."""
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    ok = True
+    for i, (name, xs, ws, spec, pads) in enumerate(precision_leaf_cases()):
+        record, leaf_ok = precision_leaf(name, xs, ws, spec, pads, seed=900 + i)
+        emit(phase="precision", part="a: leaf", **record)
+        ok = ok and leaf_ok
+        torch.cuda.empty_cache()
+    emit(phase="precision", part="a: leaves", seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("precision (a): a leaf missed its bound, kept a flag or moved "
+                             "'highest' off the TF32-off call; see above")
+
+    # (b) the card against the CPU at the small size, trained weights, a rendered scene
+    small = PipelineConfig(view_num=3, max_d=32, max_h=64, max_w=96)
+    scene = render_multiplane_scene(view_num=3, H=64, W=96, D=32, seed=11, num_spheres=2)
+    depths = {dev: precision_forward_rows(load_model(SPHERES, small, device=dev), scene, small,
+                                          FP32_PRECISION_MODES) for dev in ("cuda", "cpu")}
+    rows, ok = {}, True
+    for m in FP32_PRECISION_MODES:
+        d = (depths["cuda"][m] - depths["cpu"][m]).abs()
+        mean_b, max_b = PRECISION_SMALL_BOUNDS[m]
+        rows[m] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                   "card_vs_card_highest_mean": float(
+                       (depths["cuda"][m] - depths["cuda"]["highest"]).abs().mean()),
+                   "bounds": [mean_b, max_b]}
+        ok = (ok and bool(torch.isfinite(depths["cuda"][m]).all()) and float(d.mean()) <= mean_b
+              and float(d.max()) <= max_b)
+    emit(phase="precision", part="b: the card against the CPU", view_num=3, size=[64, 96],
+         max_d=32, scene="render_multiplane_scene(seed=11, num_spheres=2)", modes=rows, ok=ok)
+    if not ok:
+        raise AssertionError("precision (b): a mode's forward on the card is not the CPU's")
+
+    # (c) the flagship forward per mode, in turns
+    cfg = PipelineConfig()
+    images, cams = synthetic_scene(view_num=cfg.view_num, H=cfg.max_h, W=cfg.max_w,
+                                   D=cfg.max_d, seed=0)
+    model = load_model(SPHERES, cfg, device="cuda")
+    configs = {m: cfg.replace(fp32_precision=m) for m in FP32_PRECISION_MODES}
+    outs, launches = {}, {}
+    for m, c in configs.items():      # warm, and the launches of one forward per mode
+        S.reset_launch_counts()
+        out = multi_view_forward(model, images, cams, c)
+        torch.cuda.synchronize()
+        launches[m] = S.softargmin_cuda.launches
+        outs[m] = out["depth"].cpu()
+        del out
+    seconds = {m: [] for m in configs}
+    peaks = dict.fromkeys(configs, 0)
+    for _ in range(PRECISION_ROUNDS):
+        for m, c in configs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            multi_view_forward(model, images, cams, c)
+            torch.cuda.synchronize()
+            seconds[m].append(time.perf_counter() - t1)
+            peaks[m] = max(peaks[m], torch.cuda.max_memory_allocated())
+    profiles = {m: conv_kernel_profile(lambda c=c: multi_view_forward(model, images, cams, c))
+                for m, c in configs.items()}
+    rendered = train_batch(cfg, seed=21)
+    gt = torch.from_numpy(rendered["depth_gt"])
+    valid = gt > 0
+    r_depths = precision_forward_rows(model, rendered, cfg, FP32_PRECISION_MODES)
+    interval = float(cams[0, 0, 1, 3, 1])
+    r_interval = float(rendered["cams"][0, 0, 1, 3, 1])
+    rows, ok = {}, True
+    for m in configs:
+        moved, r_moved = (outs[m] - outs["highest"]).abs(), (r_depths[m] - r_depths["highest"]).abs()
+        rows[m] = {"seconds_each": seconds[m], "seconds_median": float(np.median(seconds[m])),
+                   "peak_memory_bytes": peaks[m], "softargmin_launches": launches[m],
+                   "profile": profiles[m],
+                   "noise_scene_vs_highest": {"mean_abs": float(moved.mean()),
+                                              "max_abs": float(moved.max()),
+                                              "mean_planes": float(moved.mean()) / interval},
+                   "rendered_vs_highest": {"mean_abs": float(r_moved.mean()),
+                                           "max_abs": float(r_moved.max()),
+                                           "mean_planes": float(r_moved.mean()) / r_interval},
+                   "rendered_mae_vs_ground_truth_planes":
+                       float((r_depths[m] - gt).abs()[valid].mean()) / r_interval}
+        ok = (ok and launches[m] == EXPECTED_LAUNCHES and bool(torch.isfinite(outs[m]).all())
+              and bool(torch.isfinite(r_depths[m]).all()))
+    emit(phase="precision", part="c: the flagship forward", view_num=cfg.view_num,
+         size=[cfg.max_h, cfg.max_w], max_d=cfg.max_d, dtype=cfg.compute_dtype,
+         cudnn_deterministic=True, rounds=PRECISION_ROUNDS, order=list(configs),
+         expected_launches=EXPECTED_LAUNCHES, rendered_scene="render_multiplane_scene(seed=21, "
+         "num_spheres=2) at the same size", modes=rows, ok=ok)
+    del model, outs
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("precision (c): a mode's flagship forward launched the soft-argmin "
+                             "other than 14 times or is not finite")
+
+    # (d) one fp32 train step per mode at the train CLI's size
+    tcfg = PipelineConfig(**TRAIN_SIZE)
+    batch = train_batch(tcfg, seed=3)
+    model = load_model(SPHERES, tcfg, device="cuda").requires_grad_(True)
+    steps = {}
+    for m in FP32_PRECISION_MODES:
+        c = tcfg.replace(fp32_precision=m)
+        loss_and_grads(model, batch, c, TrainConfig())       # warm
+        torch.cuda.synchronize()
+        S.reset_launch_counts()
+        t1 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model, batch, c, TrainConfig())
+        torch.cuda.synchronize()
+        steps[m] = {"loss": float(loss), "seconds": time.perf_counter() - t1, "grads": grads,
+                    "launches": (S.softargmin_cuda.launches, S.softargmin_backward_cuda.launches)}
+    rows, ok = {}, True
+    for m, st in steps.items():
+        rows[m] = {"loss": st["loss"],
+                   "loss_rel_vs_highest": abs(st["loss"] - steps["highest"]["loss"])
+                   / abs(steps["highest"]["loss"]),
+                   "grad_rel_vs_highest": grad_rel(st["grads"], steps["highest"]["grads"]),
+                   "seconds": st["seconds"], "softargmin_launches": list(st["launches"])}
+        ok = (ok and all(bool(torch.isfinite(g).all()) for g in st["grads"].values())
+              and tuple(st["launches"]) == TRAIN_LAUNCHES[(False, 0.0)])
+    emit(phase="precision", part="d: a train-size fp32 step", size=TRAIN_SIZE, modes=rows, ok=ok)
+    torch.backends.cudnn.deterministic = False
+    if not ok:
+        raise AssertionError("precision (d): a mode's train step is not finite or launched "
+                             "other soft-argmin counts")
+
+
 # ---- the helpers phase ----
 
 def helper_outputs(device: str) -> dict:
@@ -2435,12 +2750,19 @@ def phase_timing_int8(kind):
     (the port's float conv, layers._padded_conv, with deterministic algorithms and TF32
     off): the conv that the int8 route replaces, not the same function. In fp32 the other
     ring path (ring against ring_cluster, forced) is timed beside the planner's choice:
-    the times that set the planner's rule. Returns the kernel, plain, bound and cuDNN ms of
-    one fp32 flagship forward, and what bounds most of that forward's bound (a class of its
-    own may be bound by the other)."""
+    the times that set the planner's rule. The library call: cuDNN's float conv with TF32
+    allowed on the int8 values held as float32 (padded beforehand, one F.conv3d) computes
+    the same sums wherever they stay below 2^24 (TF32 holds every int8 value, and fp32 every
+    product and such a sum), provided its algorithm multiplies the values as they are: its
+    sums are held to the kernel's to the bit on the first buffer, and the largest sum is
+    reported. Returns the kernel, plain, bound, library and cuDNN ms of one fp32 flagship
+    forward, and what bounds most of that forward's bound (a class of its own may be bound
+    by the other)."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
-    totals = dict.fromkeys(("ms", "plain_ms", "bound_ms", "cudnn_float_ms", "empty_launch_ms"), 0.0)
+    totals = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms", "cudnn_float_ms",
+                            "empty_launch_ms"), 0.0)
+    library_equal = True
     bound_ms_by = {"bytes": 0.0, "operations": 0.0}
     scale = torch.tensor(INT8_SCALE, device="cuda")
     for key, n in INT8_MAIN_SHAPES.items():
@@ -2464,27 +2786,43 @@ def phase_timing_int8(kind):
             floats = [(x.to(out_dtype), w.to(out_dtype)) for x, w in bufs[:2]]
             c_ms = device_ms(lambda x, w: L._padded_conv(x, w, None, stride, 1, pads), floats, 20)
             del floats
-            p_ms = None
+            p_ms = lib_ms = lib = None
             if out_dtype == torch.float32:
                 p_ms = device_ms(lambda x, w: I8.conv3d_int8_torch(x, w, stride, pads, scale,
                                                                    out_dtype), bufs[:1], 2)
+                flat = [p for lo, hi in reversed(pads) for p in (lo, hi)]
+                held = [(torch.nn.functional.pad(x.movedim(-1, 1).float(), flat), w.float())
+                        for x, w in bufs]
+                with fp32_passes.tf32(True):
+                    sums = torch.nn.functional.conv3d(*held[0], stride=stride).movedim(1, -1)
+                    lib_ms = device_ms(lambda x, w: torch.nn.functional.conv3d(x, w, stride=stride),
+                                       held, 20)
+                acc = I8.conv3d_int8_cuda(*bufs[0], stride, pads)
+                largest = int(acc.abs().max())
+                lib = {"equal": bool(torch.equal(sums, acc.float())) and largest < 2 ** 24,
+                       "largest_sum": largest}
+                library_equal = library_equal and lib["equal"]
+                del held, sums, acc
             b_ms, b_by = int8_bound_ms(shape, co, stride, out_dtype.itemsize, kind)
             emit(phase="timing", what="conv3d_int8", input=list(shape), co=co, stride=stride,
                  out_dtype=str(out_dtype).split(".")[-1], launches_per_forward=n,
                  path=chosen["path"], plan=chosen, kernel_ms=k_ms, empty_launch_ms=e_ms,
                  other_path=other, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                  kernel_over_bound=k_ms / b_ms, cudnn_float_ms=c_ms, buffers=nbuf,
-                 library_ms=None,
-                 library="none: PyTorch has no int8 conv3d with int32 sums; cudnn_float_ms is "
-                         "the float conv of the same shape that the int8 route replaces")
+                 library_ms=lib_ms, library_sums=lib,
+                 library="cuDNN's conv, TF32 allowed, on the int8 values held as float32 "
+                         "(fp32 runs only); cudnn_float_ms is the float conv of the same shape "
+                         "that the int8 route replaces, TF32 off")
             if out_dtype == torch.float32:
                 for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
-                             ("cudnn_float_ms", c_ms), ("empty_launch_ms", e_ms)):
+                             ("library_ms", lib_ms), ("cudnn_float_ms", c_ms),
+                             ("empty_launch_ms", e_ms)):
                     totals[k] += n * v
                 bound_ms_by[b_by] += n * b_ms
         del bufs
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
+    totals["library_sums_equal"] = library_equal
     emit(phase="timing", what="conv3d_int8 per fp32 flagship forward", **totals)
     return totals, max(bound_ms_by, key=bound_ms_by.get)
 
@@ -2897,7 +3235,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
                     choices=["kernels", "int8", "native", "fusion", "eval", "train", "parallel",
-                             "quant", "depth", "helpers"],
+                             "quant", "depth", "precision", "helpers"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
@@ -2936,7 +3274,7 @@ def main() -> int:
              "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
-             "quant": phase_quant, "helpers": phase_helpers,
+             "quant": phase_quant, "helpers": phase_helpers, "precision": phase_precision,
              "depth": lambda: (phase_kernel_split(), phase_timing_split(kind), phase_depth())
              }[phase]()
         print(smi, flush=True)
@@ -2976,6 +3314,8 @@ def main() -> int:
     phase_quant()
     torch.cuda.empty_cache()
     depth_launches = phase_depth()
+    torch.cuda.empty_cache()
+    phase_precision()
     torch.cuda.empty_cache()
     phase_helpers()
 
@@ -3027,10 +3367,12 @@ def main() -> int:
         "launches": int8_launches, "launches_by_path": int8_by_path,
         "max_abs_err": max_err_int8, "ms": int8_totals["ms"],
         "plain_ms": int8_totals["plain_ms"], "bound_ms": int8_totals["bound_ms"],
-        "bound_by": int8_bound_by, "library_ms": None,
+        "bound_by": int8_bound_by, "library_ms": int8_totals["library_ms"],
+        "library_sums_equal": int8_totals["library_sums_equal"],
         "cudnn_float_ms": int8_totals["cudnn_float_ms"],
-        "library": "none: PyTorch has no int8 conv3d with int32 sums; cudnn_float_ms is the "
-                   "float conv of the same shapes that the route replaces, not the same function",
+        "library": "cuDNN's conv3d with TF32 allowed on the int8 values held as float32: the "
+                   "same sums below 2^24 (library_sums_equal: to the bit at every class); "
+                   "cudnn_float_ms is the float conv with TF32 off, a yardstick",
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0

@@ -34,7 +34,7 @@ SPHERES = os.path.join(ROOT, "artifacts", "trained_demo", "spheres_params.npz")
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from make_golden import golden_cases  # noqa: E402
 
-DROPPED = {"fp32_precision", "scoped_vmem_kib"}   # TPU only; the storage quantization is ported
+DROPPED = {"scoped_vmem_kib"}   # TPU only; the quantization and fp32_precision are ported
 
 
 def _port_cfg(jcfg) -> PipelineConfig:

@@ -4,7 +4,10 @@ the depth split's partial forward, its grid's edges and its grid query) on the c
 forward, pair_batch, DepthEstimator and training paths that launch them, and the
 consistency fusion. The int8 conv kernel of act_quant="int8mxu" against its plain version
 to the bit, on each of its paths and at the edges of its ring, a plan the kernel refuses,
-and the int8mxu forwards that launch it.
+and the int8mxu forwards that launch it. PipelineConfig.fp32_precision's pass leaves
+(ops.fp32_passes) on the TF32 tensor cores: each leaf kind against its float64 plain
+version, "highest" equal to the TF32-off call to the bit, the flags restored after every
+call and set by the mode inside the backward, and each mode's small forward against the CPU.
 
 Marked `cuda`; each test decides at run time (in the `cuda` fixture) whether a card is
 present and skips with a reason otherwise. Run them on a GPU machine with
@@ -670,3 +673,146 @@ def test_int8mxu_forward_launches_the_int8_kernel(cuda, dtype):
         assert torch.isfinite(got[k]).all()
         assert float(d.mean()) <= mean_bound and float(d.max()) <= max_bound, (k, d.max())
     assert L.ActQuant.of(cfg).mode == "int8mxu"
+
+
+# ---- fp32_precision (ops.fp32_passes) on the TF32 tensor cores ----
+
+PASS_CASES = [  # (name, x channel-last, w, ConvSpec args or None for a matmul)
+    ("conv2d s2", (2, 40, 48, 8), (16, 8, 3, 3), dict(nd=2, stride=2, padding=1)),
+    ("conv2d rate 2", (2, 30, 34, 32), (32, 32, 3, 3), dict(nd=2, padding=2, dilation=2)),
+    ("conv3d", (1, 16, 20, 24, 8), (16, 8, 3, 3, 3), dict(nd=3, padding=1)),
+    ("conv3d s2", (1, 16, 20, 24, 8), (16, 8, 3, 3, 3), dict(nd=3, stride=2, padding=1)),
+    ("transposed 3d", (1, 8, 10, 12, 16), (16, 8, 3, 3, 3), dict(nd=3, stride=2, transposed=True)),
+    ("depthwise", (2, 30, 34, 32), (32, 1, 3, 3), dict(nd=2, padding=1, groups=32)),
+    ("matmul", (4, 30, 34, 64), (64, 24), None),
+]
+
+
+def _pass_leaf(mode, x, w, spec, g=None):
+    from atvsnet_torch.ops import fp32_passes as P
+    xr, wr = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    if spec is None:
+        y = P.pass_matmul(xr, wr, mode)
+    elif spec.transposed:
+        y = P.pass_conv_transpose(xr, wr, mode, spec.stride)
+    else:
+        y = P.pass_conv(xr, wr, mode, spec.stride, spec.padding, spec.dilation, spec.groups)
+    if g is None:
+        g = torch.randn(y.shape, device=y.device, generator=torch.Generator(y.device).manual_seed(1))
+    y.backward(g)
+    return {"forward": y.detach(), "grad_input": xr.grad, "grad_weight": wr.grad}, g
+
+
+def _pass_case(case, device):
+    from atvsnet_torch.ops import fp32_passes as P
+    _, xs, ws, spec_kw = case
+    gen = torch.Generator(device).manual_seed(0)
+    x = torch.randn(xs, device=device, generator=gen)
+    if spec_kw is not None:
+        x = x.movedim(-1, 1)
+    w = torch.randn(ws, device=device, generator=gen) * 0.2
+    return x, w, None if spec_kw is None else P.ConvSpec.of(**spec_kw)
+
+
+@pytest.mark.parametrize("case", PASS_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("mode", ["high", "default"])
+def test_pass_leaf_matches_its_float64_plain_version(cuda, mode, case):
+    """Forward, grad_input and grad_weight on the TF32 tensor cores against the float64
+    plain version within max(2^-20, 4 e) of max sum |a||b|, e the "highest" call's own error
+    against the exact product; plain TF32 misses that bound (the mode is not TF32)."""
+    from atvsnet_torch.ops import fp32_passes as P
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, w, spec = _pass_case(case, cuda)
+        got, g = _pass_leaf(mode, x, w, spec)
+        top, _ = _pass_leaf("highest", x, w, spec, g)
+        if spec is None:
+            plain, ex, mag = (P.matmul_plain(x, w, mode, g), P.matmul_exact(x, w, g),
+                              P.matmul_exact(x, w, g, True))
+            with P.tf32(True):
+                tf = {"forward": x @ w, "grad_input": g @ w.T,
+                      "grad_weight": x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])}
+        else:
+            plain, ex, mag = (P.conv_plain(x, w, mode, spec, g), P.conv_exact(x, w, spec, g),
+                              P.conv_exact(x, w, spec, g, True))
+            with P.tf32(True):
+                tf = {"forward": spec.forward(x, w), "grad_input": spec.grad_input(x, g, w),
+                      "grad_weight": spec.grad_weight(x, g, w)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for k in got:
+        s = float(mag[k].max())
+        e = float((top[k].double() - ex[k]).abs().max()) / s
+        bound = max(2.0 ** -20, 4 * e)
+        err = float((got[k].double() - plain[k]).abs().max()) / s
+        assert err <= bound, (k, err, bound)
+        if k != "grad_weight":    # a long sum averages TF32's operand errors out
+            assert float((tf[k].double() - plain[k]).abs().max()) / s > bound, k
+
+
+@pytest.mark.parametrize("case", PASS_CASES, ids=lambda c: c[0])
+def test_highest_leaf_is_the_tf32_off_call_to_the_bit(cuda, case):
+    from atvsnet_torch.ops import fp32_passes as P
+    torch.backends.cudnn.deterministic = True
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        x, w, spec = _pass_case(case, cuda)
+        got, g = _pass_leaf("highest", x, w, spec)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        if spec is None:
+            want = {"forward": x @ w, "grad_input": g @ w.T,
+                    "grad_weight": x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])}
+        else:
+            gx, gw, _ = spec.backward(x, g, w, [True, True, False])
+            want = {"forward": spec.forward(x, w), "grad_input": gx, "grad_weight": gw}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+        torch.backends.cudnn.deterministic = False
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("flags", [(True, False), (False, True), (True, True)])
+def test_pass_calls_restore_the_tf32_flags_and_scope_the_backward(cuda, flags, monkeypatch):
+    """Every call, forward and backward, leaves both flags as it found them; inside, the
+    backward's ops see the mode's own setting, whatever the caller's flags say."""
+    from atvsnet_torch.ops import fp32_passes as P
+    seen = []
+    for name in ("backward", "grad_input", "grad_weight"):
+        orig = getattr(P.ConvSpec, name)
+
+        def spy(self, *args, _orig=orig):
+            seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+            return _orig(self, *args)
+        monkeypatch.setattr(P.ConvSpec, name, spy)
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    try:
+        for case in PASS_CASES:
+            for mode in ("highest", "high", "default"):
+                seen.clear()
+                x, w, spec = _pass_case(case, cuda)
+                _pass_leaf(mode, x, w, spec)
+                torch.cuda.synchronize()
+                assert (torch.backends.cudnn.allow_tf32,
+                        torch.backends.cuda.matmul.allow_tf32) == flags, (case[0], mode)
+                on = mode != "highest"
+                assert all(s == (on, on) for s in seen), (case[0], mode, seen)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("mode", ["high", "default"])
+def test_each_mode_forward_on_the_card_matches_the_cpu(cuda, mode):
+    cfg = PipelineConfig(view_num=3, max_d=32, max_h=64, max_w=96, fp32_precision=mode)
+    scene = render_multiplane_scene(view_num=3, H=64, W=96, D=32, seed=11, num_spheres=2)
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = {dev: multi_view_forward(load_model(SPHERES, cfg, device=dev), scene["images"],
+                                       scene["cams"], cfg)["depth"].cpu()
+               for dev in ("cuda", "cpu")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    d = (got["cuda"] - got["cpu"]).abs()
+    mean_bound, max_bound = {"high": (2e-5, 1e-4), "default": (4e-4, 6e-3)}[mode]
+    assert float(d.mean()) <= mean_bound and float(d.max()) <= max_bound

@@ -248,7 +248,7 @@ def test_bucket_key_covers_all_config_fields():
              "reference_compat": True, "act_quant": "int8", "act_quant_range": 4.0,
              "warp_quant": "int8", "prob_threshold": 0.5, "disp_threshold": 0.1,
              "num_consistent": 3, "fusion_depth_min": 0.1, "fusion_depth_max": 10.0,
-             "fusion_normal_threshold_deg": 90.0}
+             "fusion_normal_threshold_deg": 90.0, "fp32_precision": "default"}
     widths = {"fem_base_filter", "crm_base_filter", "shallow_base_filter", "refine_base_filter"}
     assert set(other) | widths == {f.name for f in dataclasses.fields(PipelineConfig)}
     for n, (field, value) in enumerate(other.items(), start=2):
