@@ -1,0 +1,10 @@
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips at run time without one")
