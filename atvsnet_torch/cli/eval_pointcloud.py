@@ -67,6 +67,7 @@ from atvsnet_torch.params import init_model, load_model
 from atvsnet_torch.parallel.mesh import Mesh, block, make_mesh, parse_mesh_spec
 from atvsnet_torch.serving import packed_forward, unpack_rows
 from atvsnet_torch.utils import log
+from atvsnet_torch.utils.profiling import TRACER
 from atvsnet_torch.utils.transfer import finish_download
 
 ETH3D_SCENES = ["lakeside", "sand_box", "storage_room", "storage_room_2", "tunnel"]
@@ -132,231 +133,247 @@ def run_eval_pc(
     scene's wall seconds and maps per second. `mesh`: a spec such as "data=2,view=2" (see
     the module docstring), or a built Mesh; every rank of the mesh calls run_eval_pc
     alike. act_quant, warp_quant: PipelineConfig's storage quantization.
+
+    Traced (utils.profiling.TRACER, while a profiler records): eval.startup from the entry
+    until the first forward is queued, with eval.load_model and eval.first_load in it; then
+    eval.load_wait, eval.forward and eval.drain of each batch, with the batch's index as
+    their request id; last eval.write_flush. Each of these but eval.startup and
+    eval.load_model is also its key of the returned clock's `blocked`.
     """
-    if isinstance(mesh, str) and mesh:
-        mesh = make_mesh(*parse_mesh_spec(mesh), device=device)
-    if isinstance(mesh, Mesh):
-        device = mesh.device
-        if batch % mesh.n_data:
-            batch = mesh.n_data * max(1, batch // mesh.n_data)
-        log.info(f"mesh (data={mesh.n_data}, view={mesh.n_view}, depth={mesh.n_depth}), "
-                 f"batch={batch}")
-    else:
-        mesh = None
-    device = resolve_device(device)
-    on_gpu = device.type == "cuda"
-    max_h = (max_h // 32) * 32
-    max_w = (max_w // 32) * 32
-    cfg = PipelineConfig(
-        view_num=view_num, max_d=max_d, max_h=max_h, max_w=max_w, compute_dtype=compute_dtype,
-        act_quant=act_quant, warp_quant=warp_quant,
-    )
-    log.info(
-        f"numerics: compute_dtype={compute_dtype} act_quant={act_quant} "
-        f"warp_quant={warp_quant}, device {device}"
-        + ("" if act_quant == "none" and warp_quant == "none"
-           else " (quantized mode; pass --act-quant none --warp-quant none for the exact path)")
-    )
-
-    if params_path:
-        if not os.path.exists(params_path):
-            raise SystemExit(f"error: --params checkpoint not found: {params_path}")
-        model = load_model(params_path, cfg, device)
-        log.info(f"params restored from {params_path}")
-    else:
-        log.warn("no --params given: using seeded random weights")
-        model = init_model(cfg, seed, device)
-
-    h, w = int(max_h * cfg.sample_scale), int(max_w * cfg.sample_scale)
-    names, shapes = ["depth", "confidence", "depth_sweep"], [(h, w)] * 3
-    if full_viz:
-        names, shapes = names + ["depth_sweep_up"], shapes + [(max_h, max_w)]
-
-    def maps_of(out):
-        # ONLY what the script consumes comes down, metric conversion done on the device,
-        # as one packed row. Upsampling runs only when the reference-style full-resolution
-        # viz PNG is asked for: the PFMs are at native resolution either way (so are the
-        # reference's; its *_up writes are commented out)
-        parts = [sweep_to_depth(out["depth"], cfg.inverse_depth), out["confidence"], out["depth"]]
-        return parts + ([out["depth_up"]] if full_viz else [])
-
-    os.makedirs(savepath, exist_ok=True)
-    # bound in-flight decoded chunks (each is tens of MB at 8-view eval scale)
-    window = max(2, (load_workers + batch - 1) // batch + 1)
-    if batch > 1:
-        # chunk workers only gather + concatenate; per-sample decode fans out to
-        # its own pool so all load_workers decode even when a chunk holds many
-        # samples (one worker decoding a whole chunk serially stalls scene starts)
-        sample_pool = ThreadPoolExecutor(max_workers=max(1, load_workers))
-        load_pool = ThreadPoolExecutor(max_workers=window)
-    else:
-        sample_pool = None
-        load_pool = ThreadPoolExecutor(max_workers=max(1, load_workers))
-    write_pool = ThreadPoolExecutor(max_workers=max(1, write_workers))
-
-    def _load(paths):
-        # center=False: raw uint8 goes up; the device normalizes
-        return load_mvs_sample(
-            paths, view_num, max_d=max_d, max_h=max_h, max_w=max_w,
-            inverse_depth=cfg.inverse_depth, gt_range=gt_range, center=False,
-        )
-
-    # this rank's rows of each batch; only view (and depth) rank 0 of each data group writes
-    rows = range(batch) if mesh is None else range(batch)[block(batch, mesh.n_data, mesh.data_rank)]
-    writer = mesh is None or (mesh.view_rank == 0 and mesh.depth_rank == 0)
-
-    def _load_chunk(paths_chunk):
-        """Decode+preprocess this rank's rows of a batch off the main thread, which then
-        only touches ready arrays. The tail pads with the last sample."""
-        n_real = len(paths_chunk)
-        mine = [min(r, n_real - 1) for r in rows]
-        unique = sorted(set(mine))
-        paths = [paths_chunk[i] for i in unique]
-        loaded = list(sample_pool.map(_load, paths)) if sample_pool is not None else [
-            _load(p) for p in paths]
-        samples = [loaded[unique.index(i)] for i in mine]
-        images = np.concatenate([s["images"] for s in samples], axis=0)
-        cams = np.concatenate([s["cams"] for s in samples], axis=0)
-        return (images, cams), samples, sum(r < n_real for r in rows)
-
-    # ---- one chunk stream across ALL scenes. Per-scene queues stall the loop at
-    # every scene boundary (the first chunk of a scene has no decode lead time);
-    # a flat stream keeps the loaders primed through boundaries. All scenes share the
-    # one bucket, so only the output folder differs per chunk. ----
-    scene_meta = []
-    work = []  # (scene_index, [sample paths] of one batch)
-    for scene in scenes:
-        dense_path = os.path.join(data_root, "eth3d", scene)
-        if not os.path.isdir(dense_path):
-            log.warn(f"scene folder missing, skipping: {dense_path}")
-            continue
-        mvs_list = gen_pipeline_mvs_list(dense_path, view_num)
-        out_folder = os.path.join(savepath, scene, "depths_atvsnet")
-        os.makedirs(out_folder, exist_ok=True)
-        si = len(scene_meta)
-        scene_meta.append({
-            "name": scene, "out_folder": out_folder, "n": len(mvs_list),
-            "start": None, "end": 0.0, "done": 0, "write_futures": [],
-        })
-        for i in range(0, len(mvs_list), batch):
-            work.append((si, mvs_list[i : i + batch]))
-
-    queue = deque()
-    next_i = 0
-
-    def _top_up():
-        nonlocal next_i
-        while next_i < len(work) and len(queue) < window:
-            si, chunk = work[next_i]
-            queue.append((si, load_pool.submit(_load_chunk, chunk)))
-            next_i += 1
-
-    blocked = {"load_s": 0.0, "queue_forward_s": 0.0, "wait_forward_s": 0.0,
-               "write_flush_s": 0.0}
-    batch_seconds = []
-    pending = None  # (scene idx, download, samples, n_real, clocks) awaiting its download
-    end_lock = threading.Lock()
-
-    def _write_one(si, sample, maps):
-        _write_sample_outputs(
-            scene_meta[si]["out_folder"], sample, maps["depth"], maps["confidence"],
-            maps["depth_sweep"], cfg.sample_scale, maps.get("depth_sweep_up"),
-        )
-        with end_lock:  # the writer threads share the scene's record
-            scene_meta[si]["end"] = max(scene_meta[si]["end"], time.time())
-
-    def _clock():
-        """A point in time on the stream the forward runs on (an event), or on the host."""
-        if not on_gpu:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def _drain(p):
-        """Wait for a queued batch's download and hand its writes to the pool."""
-        t0 = time.perf_counter()
-        si, download, samples, n_real, (began, ended) = p
-        maps = unpack_rows(finish_download(*download), names, shapes)[rows.start:]
-        if on_gpu:
-            ended.synchronize()
-            batch_seconds.append(began.elapsed_time(ended) / 1e3)
-        else:
-            batch_seconds.append(ended - began)
-        blocked["wait_forward_s"] += time.perf_counter() - t0
-        meta = scene_meta[si]
-        for b in range(n_real if writer else 0):
-            meta["write_futures"].append(write_pool.submit(_write_one, si, samples[b], maps[b]))
-        meta["done"] += n_real
-        if meta["done"] % 10 < n_real or meta["done"] == meta["n"]:
-            log.info(f"{meta['name']}: {meta['done']}/{meta['n']} drained")
-
+    startup = TRACER.span("eval.startup")
+    startup.__enter__()
     try:
-        _top_up()
-        for _ in range(len(work)):
-            t0 = time.perf_counter()
-            si, fut = queue.popleft()
-            (host_images, host_cams), samples, n_real = fut.result()
+        if isinstance(mesh, str) and mesh:
+            mesh = make_mesh(*parse_mesh_spec(mesh), device=device)
+        if isinstance(mesh, Mesh):
+            device = mesh.device
+            if batch % mesh.n_data:
+                batch = mesh.n_data * max(1, batch // mesh.n_data)
+            log.info(f"mesh (data={mesh.n_data}, view={mesh.n_view}, depth={mesh.n_depth}), "
+                     f"batch={batch}")
+        else:
+            mesh = None
+        device = resolve_device(device)
+        on_gpu = device.type == "cuda"
+        max_h = (max_h // 32) * 32
+        max_w = (max_w // 32) * 32
+        cfg = PipelineConfig(
+            view_num=view_num, max_d=max_d, max_h=max_h, max_w=max_w, compute_dtype=compute_dtype,
+            act_quant=act_quant, warp_quant=warp_quant,
+        )
+        log.info(
+            f"numerics: compute_dtype={compute_dtype} act_quant={act_quant} "
+            f"warp_quant={warp_quant}, device {device}"
+            + ("" if act_quant == "none" and warp_quant == "none"
+               else " (quantized mode; pass --act-quant none --warp-quant none for the exact path)")
+        )
+
+        with TRACER.span("eval.load_model"):
+            if params_path:
+                if not os.path.exists(params_path):
+                    raise SystemExit(f"error: --params checkpoint not found: {params_path}")
+                model = load_model(params_path, cfg, device)
+                log.info(f"params restored from {params_path}")
+            else:
+                log.warn("no --params given: using seeded random weights")
+                model = init_model(cfg, seed, device)
+
+        h, w = int(max_h * cfg.sample_scale), int(max_w * cfg.sample_scale)
+        names, shapes = ["depth", "confidence", "depth_sweep"], [(h, w)] * 3
+        if full_viz:
+            names, shapes = names + ["depth_sweep_up"], shapes + [(max_h, max_w)]
+
+        def maps_of(out):
+            # ONLY what the script consumes comes down, metric conversion done on the device,
+            # as one packed row. Upsampling runs only when the reference-style full-resolution
+            # viz PNG is asked for: the PFMs are at native resolution either way (so are the
+            # reference's; its *_up writes are commented out)
+            parts = [sweep_to_depth(out["depth"], cfg.inverse_depth), out["confidence"],
+                     out["depth"]]
+            return parts + ([out["depth_up"]] if full_viz else [])
+
+        os.makedirs(savepath, exist_ok=True)
+        # bound in-flight decoded chunks (each is tens of MB at 8-view eval scale)
+        window = max(2, (load_workers + batch - 1) // batch + 1)
+        if batch > 1:
+            # chunk workers only gather + concatenate; per-sample decode fans out to
+            # its own pool so all load_workers decode even when a chunk holds many
+            # samples (one worker decoding a whole chunk serially stalls scene starts)
+            sample_pool = ThreadPoolExecutor(max_workers=max(1, load_workers))
+            load_pool = ThreadPoolExecutor(max_workers=window)
+        else:
+            sample_pool = None
+            load_pool = ThreadPoolExecutor(max_workers=max(1, load_workers))
+        write_pool = ThreadPoolExecutor(max_workers=max(1, write_workers))
+
+        def _load(paths):
+            # center=False: raw uint8 goes up; the device normalizes
+            return load_mvs_sample(
+                paths, view_num, max_d=max_d, max_h=max_h, max_w=max_w,
+                inverse_depth=cfg.inverse_depth, gt_range=gt_range, center=False,
+            )
+
+        # this rank's rows of each batch; only view (and depth) rank 0 of each data group writes
+        rows = (range(batch) if mesh is None
+                else range(batch)[block(batch, mesh.n_data, mesh.data_rank)])
+        writer = mesh is None or (mesh.view_rank == 0 and mesh.depth_rank == 0)
+
+        def _load_chunk(paths_chunk):
+            """Decode+preprocess this rank's rows of a batch off the main thread, which then
+            only touches ready arrays. The tail pads with the last sample."""
+            n_real = len(paths_chunk)
+            mine = [min(r, n_real - 1) for r in rows]
+            unique = sorted(set(mine))
+            paths = [paths_chunk[i] for i in unique]
+            loaded = list(sample_pool.map(_load, paths)) if sample_pool is not None else [
+                _load(p) for p in paths]
+            samples = [loaded[unique.index(i)] for i in mine]
+            images = np.concatenate([s["images"] for s in samples], axis=0)
+            cams = np.concatenate([s["cams"] for s in samples], axis=0)
+            return (images, cams), samples, sum(r < n_real for r in rows)
+
+        # ---- one chunk stream across ALL scenes. Per-scene queues stall the loop at
+        # every scene boundary (the first chunk of a scene has no decode lead time);
+        # a flat stream keeps the loaders primed through boundaries. All scenes share the
+        # one bucket, so only the output folder differs per chunk. ----
+        scene_meta = []
+        work = []  # (scene_index, [sample paths] of one batch)
+        for scene in scenes:
+            dense_path = os.path.join(data_root, "eth3d", scene)
+            if not os.path.isdir(dense_path):
+                log.warn(f"scene folder missing, skipping: {dense_path}")
+                continue
+            mvs_list = gen_pipeline_mvs_list(dense_path, view_num)
+            out_folder = os.path.join(savepath, scene, "depths_atvsnet")
+            os.makedirs(out_folder, exist_ok=True)
+            si = len(scene_meta)
+            scene_meta.append({
+                "name": scene, "out_folder": out_folder, "n": len(mvs_list),
+                "start": None, "end": 0.0, "done": 0, "write_futures": [],
+            })
+            for i in range(0, len(mvs_list), batch):
+                work.append((si, mvs_list[i : i + batch]))
+
+        queue = deque()
+        next_i = 0
+
+        def _top_up():
+            nonlocal next_i
+            while next_i < len(work) and len(queue) < window:
+                si, chunk = work[next_i]
+                queue.append((si, load_pool.submit(_load_chunk, chunk)))
+                next_i += 1
+
+        blocked = {"load_s": 0.0, "queue_forward_s": 0.0, "wait_forward_s": 0.0,
+                   "write_flush_s": 0.0}
+        batch_seconds = []
+        pending = None  # (batch, scene idx, download, samples, n_real, clocks) awaiting download
+        end_lock = threading.Lock()
+
+        def _write_one(si, sample, maps):
+            _write_sample_outputs(
+                scene_meta[si]["out_folder"], sample, maps["depth"], maps["confidence"],
+                maps["depth_sweep"], cfg.sample_scale, maps.get("depth_sweep_up"),
+            )
+            with end_lock:  # the writer threads share the scene's record
+                scene_meta[si]["end"] = max(scene_meta[si]["end"], time.time())
+
+        def _clock():
+            """A point in time on the stream the forward runs on (an event), or on the host."""
+            if not on_gpu:
+                return time.perf_counter()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+
+        def _drain(p):
+            """Wait for a queued batch's download and hand its writes to the pool."""
+            i, si, download, samples, n_real, (began, ended) = p
+            with TRACER.span("eval.drain", into=blocked, key="wait_forward_s", request=i):
+                maps = unpack_rows(finish_download(*download), names, shapes)[rows.start:]
+                if on_gpu:
+                    ended.synchronize()
+                    batch_seconds.append(began.elapsed_time(ended) / 1e3)
+                else:
+                    batch_seconds.append(ended - began)
+            meta = scene_meta[si]
+            for b in range(n_real if writer else 0):
+                meta["write_futures"].append(write_pool.submit(_write_one, si, samples[b], maps[b]))
+            meta["done"] += n_real
+            if meta["done"] % 10 < n_real or meta["done"] == meta["n"]:
+                log.info(f"{meta['name']}: {meta['done']}/{meta['n']} drained")
+
+        try:
             _top_up()
-            blocked["load_s"] += time.perf_counter() - t0
-            if scene_meta[si]["start"] is None:
-                scene_meta[si]["start"] = time.time() - (time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            began = _clock()
-            download = packed_forward(model, cfg, host_images, host_cams, device, False,
-                                      maps_of, mesh, out_prob_map=True, upsample=full_viz)
-            ended = _clock()
-            blocked["queue_forward_s"] += time.perf_counter() - t0
+            for i in range(len(work)):
+                waited_from = time.time()
+                # the first batch's load is start-up, under its request
+                with TRACER.span("eval.first_load" if i == 0 else "eval.load_wait",
+                                 into=blocked, key="load_s", request=i if i else None):
+                    si, fut = queue.popleft()
+                    (host_images, host_cams), samples, n_real = fut.result()
+                    _top_up()
+                if scene_meta[si]["start"] is None:
+                    scene_meta[si]["start"] = waited_from
+                if i == 0:
+                    startup.__exit__(None, None, None)  # start-up ends as the first forward goes
+                with TRACER.span("eval.forward", into=blocked, key="queue_forward_s", request=i):
+                    began = _clock()
+                    download = packed_forward(model, cfg, host_images, host_cams, device,
+                                              False, maps_of, mesh, out_prob_map=True,
+                                              upsample=full_viz)
+                    ended = _clock()
+                if pending is not None:
+                    _drain(pending)
+                pending = (i, si, download, samples, n_real, (began, ended))
             if pending is not None:
                 _drain(pending)
-            pending = (si, download, samples, n_real, (began, ended))
-        if pending is not None:
-            _drain(pending)
-        t0 = time.perf_counter()
-        for meta in scene_meta:
-            for f in meta["write_futures"]:
-                f.result()  # surface writer exceptions
-        if mesh is not None:
-            dist.barrier()  # every rank's files are written
-        blocked["write_flush_s"] += time.perf_counter() - t0
+            with TRACER.span("eval.write_flush", into=blocked, key="write_flush_s"):
+                for meta in scene_meta:
+                    for f in meta["write_futures"]:
+                        f.result()  # surface writer exceptions
+                if mesh is not None:
+                    dist.barrier()  # every rank's files are written
 
-        scene_stats = {}
-        for meta in scene_meta:
-            if meta["start"] is None or (mesh is not None and dist.get_rank() != 0):
-                continue
-            scene_runtime = max(meta["end"], meta["start"]) - meta["start"]
-            with open(
-                os.path.join(savepath, meta["name"], "zz_runtime.txt"), "w"
-            ) as f:
-                f.write("runtime " + str(scene_runtime))
-            n = meta["n"]
-            maps_per_s = n / max(scene_runtime, 1e-9)
-            scene_stats[meta["name"]] = {"ref_images": n, "seconds": scene_runtime,
-                                         "maps_per_s": maps_per_s}
+            scene_stats = {}
+            for meta in scene_meta:
+                if meta["start"] is None or (mesh is not None and dist.get_rank() != 0):
+                    continue
+                scene_runtime = max(meta["end"], meta["start"]) - meta["start"]
+                with open(
+                    os.path.join(savepath, meta["name"], "zz_runtime.txt"), "w"
+                ) as f:
+                    f.write("runtime " + str(scene_runtime))
+                n = meta["n"]
+                maps_per_s = n / max(scene_runtime, 1e-9)
+                scene_stats[meta["name"]] = {"ref_images": n, "seconds": scene_runtime,
+                                             "maps_per_s": maps_per_s}
+                log.info(
+                    f"{meta['name']}: {n} ref images in {scene_runtime:.1f}s wall "
+                    f"({maps_per_s:.2f} maps/s)"
+                )
             log.info(
-                f"{meta['name']}: {n} ref images in {scene_runtime:.1f}s wall "
-                f"({maps_per_s:.2f} maps/s)"
+                f"run blocked: load {blocked['load_s']:.1f}s, queueing forwards "
+                f"{blocked['queue_forward_s']:.1f}s, waiting for forwards "
+                f"{blocked['wait_forward_s']:.1f}s, write-flush {blocked['write_flush_s']:.1f}s"
             )
-        log.info(
-            f"run blocked: load {blocked['load_s']:.1f}s, queueing forwards "
-            f"{blocked['queue_forward_s']:.1f}s, waiting for forwards "
-            f"{blocked['wait_forward_s']:.1f}s, write-flush {blocked['write_flush_s']:.1f}s"
-        )
-        if len(batch_seconds) > 1:
-            # nothing is compiled, yet the first forward of a shape is slower than the
-            # rest: the convolution library tries its algorithms and the allocator grows
-            log.info(
-                f"  first batch {batch_seconds[0]:.2f}s (the convolution library's "
-                f"algorithm search and the allocator's growth), the others "
-                f"{float(np.median(batch_seconds[1:])):.2f}s (median)"
-            )
-        return {"blocked": blocked, "batch_seconds": batch_seconds, "scenes": scene_stats}
+            if len(batch_seconds) > 1:
+                # nothing is compiled, yet the first forward of a shape is slower than the
+                # rest: the convolution library tries its algorithms and the allocator grows
+                log.info(
+                    f"  first batch {batch_seconds[0]:.2f}s (the convolution library's "
+                    f"algorithm search and the allocator's growth), the others "
+                    f"{float(np.median(batch_seconds[1:])):.2f}s (median)"
+                )
+            return {"blocked": blocked, "batch_seconds": batch_seconds, "scenes": scene_stats}
+        finally:
+            # after a fault, samples still queued are dropped, not decoded
+            load_pool.shutdown(wait=False, cancel_futures=True)
+            if sample_pool is not None:
+                sample_pool.shutdown(wait=False, cancel_futures=True)
+            write_pool.shutdown(wait=True)
     finally:
-        # after a fault, samples still queued are dropped, not decoded
-        load_pool.shutdown(wait=False, cancel_futures=True)
-        if sample_pool is not None:
-            sample_pool.shutdown(wait=False, cancel_futures=True)
-        write_pool.shutdown(wait=True)
+        startup.__exit__(None, None, None)  # a no-op once closed: open only if start-up raised
 
 
 def _quant_mode(field: str):

@@ -23,6 +23,7 @@ from atvsnet_torch.fusion.consistency import fuse_depth_maps
 from atvsnet_torch.fusion.dmb import fake_normals, write_dmb, write_p_matrix
 from atvsnet_torch.fusion.ply import write_ply
 from atvsnet_torch.utils import log
+from atvsnet_torch.utils.profiling import TRACER
 
 
 def probability_filter(depth_folder: str, prob_threshold: float) -> None:
@@ -107,21 +108,29 @@ def fuse_scene(
 
     Matches the settings wired at reference depth_fusion.py:205-235 (depth_min/max
     match the --depth_min/--depth_max values passed at :210-211,218-219).
+
+    Traced (utils.profiling.TRACER, while a profiler records) as fusion.scene, with
+    fusion.filter, fusion.load, fusion.consistency and fusion.ply.
     """
     device = resolve_device(device)  # before any file is written: no CUDA, no half-done scene
     depth_folder = os.path.join(dense_folder, depth_subdir)
-    log.info(f"probability filter (tau={prob_threshold}) in {depth_folder}")
-    probability_filter(depth_folder, prob_threshold)
+    with TRACER.span("fusion.scene"):
+        log.info(f"probability filter (tau={prob_threshold}) in {depth_folder}")
+        with TRACER.span("fusion.filter"):
+            probability_filter(depth_folder, prob_threshold)
 
-    depths, images, cams, names = load_scene(depth_folder, filtered=True)
-    log.info(f"fusing {len(names)} views ({depths.shape[1]}x{depths.shape[2]})")
-    points, colors_bgr = fuse_depth_maps(
-        depths, images, cams, disp_thresh=disp_threshold, num_consistent=num_consistent,
-        depth_min=depth_min, depth_max=depth_max, device=device,
-    )
-    colors_rgb = colors_bgr[:, ::-1]  # cv2 loads BGR; PLY stores RGB (displayUtils.h:85-88)
+        with TRACER.span("fusion.load"):
+            depths, images, cams, names = load_scene(depth_folder, filtered=True)
+        log.info(f"fusing {len(names)} views ({depths.shape[1]}x{depths.shape[2]})")
+        with TRACER.span("fusion.consistency"):
+            points, colors_bgr = fuse_depth_maps(
+                depths, images, cams, disp_thresh=disp_threshold, num_consistent=num_consistent,
+                depth_min=depth_min, depth_max=depth_max, device=device,
+            )
+        colors_rgb = colors_bgr[:, ::-1]  # cv2 loads BGR; PLY stores RGB (displayUtils.h:85-88)
 
-    out_ply = out_ply or os.path.join(dense_folder, "final3d_model.ply")
-    write_ply(out_ply, points, colors_rgb)
+        out_ply = out_ply or os.path.join(dense_folder, "final3d_model.ply")
+        with TRACER.span("fusion.ply"):
+            write_ply(out_ply, points, colors_rgb)
     log.info(f"{points.shape[0]} points -> {out_ply}")
     return out_ply

@@ -29,6 +29,7 @@ from atvsnet_torch.models.tvsnet import (
 )
 from atvsnet_torch.nn.layers import ActQuant
 from atvsnet_torch.parallel.pipeline import multi_view_forward_spmd
+from atvsnet_torch.utils.profiling import TRACER
 
 
 @torch.no_grad()
@@ -38,80 +39,97 @@ def multi_view_forward(model: ATVSNet, images, cams, cfg: PipelineConfig,
 
     Runs on the model's device. upsample=False skips the 4x-upsampled outputs
     (no depth_up / confidence_up keys).
+
+    While a profiler records, utils.profiling.TRACER records the call as the span
+    `forward`, with its stages forward.fem, .pairs, .aam1, .refine and .aam2 in order,
+    each with its device time (adjacent stages share their boundary events).
     """
-    images, cams = prepare_inputs(model, images, cams, cfg)
-    N = images.shape[1]
-    if N != cfg.view_num or N <= 2:
-        raise ValueError(f"multi_view_forward needs view_num > 2 views, got {N} "
-                         f"(cfg.view_num={cfg.view_num})")
-    D = cfg.max_d
-    depth_start = cams[:, 0, 1, 3, 0]
-    depth_interval = cams[:, 0, 1, 3, 1]
-    impl = cfg.softargmin_impl
+    device = next(model.parameters()).device
+    with TRACER.span("forward", device=device):
+        images, cams = prepare_inputs(model, images, cams, cfg)
+        N = images.shape[1]
+        if N != cfg.view_num or N <= 2:
+            raise ValueError(f"multi_view_forward needs view_num > 2 views, got {N} "
+                             f"(cfg.view_num={cfg.view_num})")
+        D = cfg.max_d
+        depth_start = cams[:, 0, 1, 3, 0]
+        depth_interval = cams[:, 0, 1, 3, 1]
+        impl = cfg.softargmin_impl
 
-    features = extract_features(model, images, cfg)                # (B, N, h, w, F)
-    shallow = extract_features(model, images, cfg, shallow=True)   # (B, N, h, w, 16)
-    ref_feature, ref_cam, shallow_ref = features[:, 0], cams[:, 0], shallow[:, 0]
+        with TRACER.span("forward.fem", device=device):
+            features = extract_features(model, images, cfg)                # (B, N, h, w, F)
+            shallow = extract_features(model, images, cfg, shallow=True)   # (B, N, h, w, 16)
+            ref_feature, ref_cam, shallow_ref = features[:, 0], cams[:, 0], shallow[:, 0]
 
-    # ---- stage 1: per-pair base nets ----
-    filtered_costs, prob_volumes, depth_views = [], [], []
-    for view_i in range(1, N):
-        out = tvsnet_base(model, ref_feature, features[:, view_i], ref_cam, cams[:, view_i],
-                          cfg, depth_start, depth_interval)
-        filtered_costs.append(out.filtered_cost)
-        prob_volumes.append(out.prob_volume)
-        depth_views.append(out.depth_view)
-    filtered_costs = torch.stack(filtered_costs)   # (P, B, D, h, w, C)
-    depth_views = torch.stack(depth_views)         # (P, B, h, w, 1)
+        # ---- stage 1: per-pair base nets ----
+        with TRACER.span("forward.pairs", device=device):
+            filtered_costs, prob_volumes, depth_views = [], [], []
+            for view_i in range(1, N):
+                out = tvsnet_base(model, ref_feature, features[:, view_i], ref_cam,
+                                  cams[:, view_i], cfg, depth_start, depth_interval)
+                filtered_costs.append(out.filtered_cost)
+                prob_volumes.append(out.prob_volume)
+                depth_views.append(out.depth_view)
+            filtered_costs = torch.stack(filtered_costs)   # (P, B, D, h, w, C)
+            depth_views = torch.stack(depth_views)         # (P, B, h, w, 1)
 
-    # ---- stage 2: AAM1 ----
-    quant, prec = ActQuant.of(cfg), cfg.fp32_precision
-    cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, quant=quant,
-                                     precision=prec)                               # (B,D,h,w,C)
-    del filtered_costs
-    prob_agg = aam_output_conv(model, cost_agg, stage=1, quant=quant, precision=prec)  # (B,D,h,w)
-    conf_agg = None
-    if out_prob_map:
-        depth_agg, conf_agg = prob2depth(prob_agg, D, depth_start, depth_interval, True, impl=impl)
-    else:
-        depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=impl)
+        # ---- stage 2: AAM1 ----
+        with TRACER.span("forward.aam1", device=device):
+            quant, prec = ActQuant.of(cfg), cfg.fp32_precision
+            cost_agg = aam_aggregate_stacked(model, filtered_costs, stage=1, quant=quant,
+                                             precision=prec)                       # (B,D,h,w,C)
+            del filtered_costs
+            prob_agg = aam_output_conv(model, cost_agg, stage=1, quant=quant,
+                                       precision=prec)                             # (B,D,h,w)
+            conf_agg = None
+            if out_prob_map:
+                depth_agg, conf_agg = prob2depth(prob_agg, D, depth_start, depth_interval, True,
+                                                 impl=impl)
+            else:
+                depth_agg = prob2depth(prob_agg, D, depth_start, depth_interval, impl=impl)
 
-    # ---- stage 3: per-pair refinement ----
-    # reference_compat: the reference's per-pair visual hull always reads camera 1
-    hull_cam = cams[:, 1] if cfg.reference_compat else None
-    if cfg.pair_batch:
-        cost_res, prob_res = refine_pairs_batched(model, depth_agg, depth_views, prob_agg, cams,
-                                                  shallow, cfg, depth_start, depth_interval,
-                                                  hull_cam)
-        refined_probs = prob_agg[None] + prob_res.to(prob_agg.dtype)
-        refined_costs = cost_agg[None] + cost_res.to(cost_agg.dtype)
-    else:
-        refined_probs, refined_costs = [], []
-        for view_i in range(1, N):
-            rp, rc = tvsnet_refine(model, depth_agg, depth_views[view_i - 1], prob_agg, cost_agg,
-                                   ref_cam, cams[:, view_i], shallow_ref, shallow[:, view_i], cfg,
-                                   depth_start, depth_interval, hull_view_cam=hull_cam)
-            refined_probs.append(rp)
-            refined_costs.append(rc)
-        refined_probs, refined_costs = torch.stack(refined_probs), torch.stack(refined_costs)
+        # ---- stage 3: per-pair refinement ----
+        with TRACER.span("forward.refine", device=device):
+            # reference_compat: the reference's per-pair visual hull always reads camera 1
+            hull_cam = cams[:, 1] if cfg.reference_compat else None
+            if cfg.pair_batch:
+                cost_res, prob_res = refine_pairs_batched(model, depth_agg, depth_views, prob_agg,
+                                                          cams, shallow, cfg, depth_start,
+                                                          depth_interval, hull_cam)
+                refined_probs = prob_agg[None] + prob_res.to(prob_agg.dtype)
+                refined_costs = cost_agg[None] + cost_res.to(cost_agg.dtype)
+            else:
+                refined_probs, refined_costs = [], []
+                for view_i in range(1, N):
+                    rp, rc = tvsnet_refine(model, depth_agg, depth_views[view_i - 1], prob_agg,
+                                           cost_agg, ref_cam, cams[:, view_i], shallow_ref,
+                                           shallow[:, view_i], cfg, depth_start, depth_interval,
+                                           hull_view_cam=hull_cam)
+                    refined_probs.append(rp)
+                    refined_costs.append(rc)
+                refined_probs = torch.stack(refined_probs)
+                refined_costs = torch.stack(refined_costs)
 
-    # ---- stage 4: AAM2 + (upsampled) soft-argmin ----
-    cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, quant=quant, precision=prec)
-    del refined_costs
-    final = final_depths(aam_output_conv(model, cost_agg2, stage=2, quant=quant, precision=prec),
-                         cfg, depth_start, depth_interval, out_prob_map, upsample)
+        # ---- stage 4: AAM2 + (upsampled) soft-argmin ----
+        with TRACER.span("forward.aam2", device=device):
+            cost_agg2 = aam_aggregate_stacked(model, refined_costs, stage=2, quant=quant,
+                                              precision=prec)
+            del refined_costs
+            final = final_depths(aam_output_conv(model, cost_agg2, stage=2, quant=quant,
+                                                 precision=prec),
+                                 cfg, depth_start, depth_interval, out_prob_map, upsample)
 
-    out = {
-        "depth_agg_initial": depth_agg,
-        "prob_volume_agg": prob_agg,
-        "prob_volumes": torch.stack(prob_volumes),        # (P, B, D, h, w)
-        "refined_prob_volumes": refined_probs,
-        "depth_views": depth_views,
-        **final,
-    }
-    if out_prob_map:
-        out["confidence_agg_initial"] = conf_agg
-    return out
+        out = {
+            "depth_agg_initial": depth_agg,
+            "prob_volume_agg": prob_agg,
+            "prob_volumes": torch.stack(prob_volumes),        # (P, B, D, h, w)
+            "refined_prob_volumes": refined_probs,
+            "depth_views": depth_views,
+            **final,
+        }
+        if out_prob_map:
+            out["confidence_agg_initial"] = conf_agg
+        return out
 
 
 def multi_view_forward_train(model: ATVSNet, images, cams, cfg: PipelineConfig,

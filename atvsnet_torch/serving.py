@@ -48,6 +48,7 @@ from atvsnet_torch.models.tvsnet import two_view_forward
 from atvsnet_torch.params import init_model, load_model
 from atvsnet_torch.parallel.mesh import Mesh, gather_blocks, make_mesh, parse_mesh_spec
 from atvsnet_torch.parallel.pipeline import forward_rows
+from atvsnet_torch.utils.profiling import TRACER
 from atvsnet_torch.utils.transfer import finish_download, start_download
 
 # a bucket may override anything but the widths the shared model was built with
@@ -69,19 +70,24 @@ def packed_forward(model, c: PipelineConfig, images: np.ndarray, cams: np.ndarra
     With a mesh, images and cams are this rank's rows of the batch (mesh.data_rows), the
     N-view forward is parallel.pipeline's and the two-view forward runs the rows alone;
     the rows of every data rank come down, in batch order, on every rank.
+
+    Traced (utils.profiling.TRACER) as forward.upload (the upload and the centring) and
+    forward.pack (the maps' packing and the download's start) around the forward.
     """
-    x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-    x = x.to(torch.float32) if centered else center_images(x)
+    with TRACER.span("forward.upload"):
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        x = x.to(torch.float32) if centered else center_images(x)
     if c.view_num == 2:
         out = two_view_forward(model, x, cams, c)
     elif mesh is None:
         out = multi_view_forward(model, x, cams, c, **forward_kw)
     else:
         out = forward_rows(model, x, cams, c, mesh, **forward_kw)
-    parts = maps_of(out)
-    b = parts[0].shape[0]
-    packed = torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1)
-    return start_download(packed if mesh is None else gather_blocks(packed, mesh.data_group))
+    with TRACER.span("forward.pack"):
+        parts = maps_of(out)
+        b = parts[0].shape[0]
+        packed = torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1)
+        return start_download(packed if mesh is None else gather_blocks(packed, mesh.data_group))
 
 
 def unpack_rows(packed: np.ndarray, names, shapes) -> list[dict]:
@@ -181,7 +187,8 @@ class DepthEstimator:
         images (B, N, H, W, 3) of the bucket's size, uint8 or float; cams (B, N, 2, 4, 4);
         with a mesh, B is a multiple of the 'data' extent and each rank runs its rows.
         Returns the per-sample maps (numpy views into the downloaded row) and the seconds
-        from before the upload until the download has finished.
+        from before the upload until the download has finished (the spans serve.forward and
+        serve.download).
         """
         with_conf = self.with_confidence and c.view_num > 2
 
@@ -192,12 +199,15 @@ class DepthEstimator:
 
         if self.mesh is not None:
             images, cams = self.mesh.data_rows(images), self.mesh.data_rows(cams)
-        t0 = time.perf_counter()
-        packed = finish_download(*packed_forward(
-            self.model, c, images, cams, self.device, centered, maps_of, self.mesh,
-            out_prob_map=with_conf))
-        runtime = time.perf_counter() - t0
-        return unpack_rows(packed, *self._map_layout(c)), runtime
+        clock = {"runtime_s": 0.0}
+        with TRACER.span("serve.forward", into=clock, key="runtime_s"):
+            download = packed_forward(self.model, c, images, cams, self.device, centered,
+                                      maps_of, self.mesh, out_prob_map=with_conf)
+        with TRACER.span("serve.download", into=clock, key="runtime_s"):
+            packed = finish_download(*download)
+        with TRACER.span("serve.unpack"):
+            maps = unpack_rows(packed, *self._map_layout(c))
+        return maps, clock["runtime_s"]
 
     @staticmethod
     def _result(c: PipelineConfig, maps: dict, valid_hw, runtime: float) -> dict:
@@ -281,7 +291,18 @@ class DepthEstimator:
         preprocessed=True: the images are already normalized and of a bucket's exact
         size, and the cams already carry cost-volume intrinsics and the sweep row.
         With a mesh, every rank calls it with the same request and gets the result.
+        Traced (utils.profiling.TRACER) as serve.request, with serve.prepare, serve.forward,
+        serve.download and serve.unpack under one request id.
         """
+        with TRACER.span("serve.request"):
+            with TRACER.span("serve.prepare"):
+                c, batch = self._prepare_request(images, cams, preprocessed)
+            maps, runtime = self._forward(c, self._tile(batch["images"]),
+                                          self._tile(batch["cams"]), centered=preprocessed)
+            return self._result(c, maps[0], batch["valid_hw"], runtime)
+
+    def _prepare_request(self, images, cams, preprocessed: bool):
+        """predict's routing and preparation: (bucket, batch of one sample)."""
         h, w = images[0].shape[:2]
         c = self._route(h, w)
         if preprocessed:
@@ -313,9 +334,7 @@ class DepthEstimator:
             }
         else:
             batch = self._prepare(c, images, cams)
-        maps, runtime = self._forward(c, self._tile(batch["images"]), self._tile(batch["cams"]),
-                                      centered=preprocessed)
-        return self._result(c, maps[0], batch["valid_hw"], runtime)
+        return c, batch
 
     def predict_many(
         self,
@@ -332,16 +351,18 @@ class DepthEstimator:
         """
         if not requests:
             return []
-        h = max(imgs[0].shape[0] for imgs, _ in requests)
-        w = max(imgs[0].shape[1] for imgs, _ in requests)
-        c = self._route(h, w)
-        prepared = [self._prepare(c, imgs, cms) for imgs, cms in requests]
-        padded = prepared + prepared[-1:] * (-len(prepared) % self._data_extent())
-        images = np.concatenate([b["images"] for b in padded], axis=0)
-        cams = np.concatenate([b["cams"] for b in padded], axis=0)
-        all_maps, runtime = self._forward(c, images, cams, centered=False)
-        return [self._result(c, maps, b["valid_hw"], runtime)
-                for maps, b in zip(all_maps, prepared)]
+        with TRACER.span("serve.request"):
+            with TRACER.span("serve.prepare"):
+                h = max(imgs[0].shape[0] for imgs, _ in requests)
+                w = max(imgs[0].shape[1] for imgs, _ in requests)
+                c = self._route(h, w)
+                prepared = [self._prepare(c, imgs, cms) for imgs, cms in requests]
+                padded = prepared + prepared[-1:] * (-len(prepared) % self._data_extent())
+                images = np.concatenate([b["images"] for b in padded], axis=0)
+                cams = np.concatenate([b["cams"] for b in padded], axis=0)
+            all_maps, runtime = self._forward(c, images, cams, centered=False)
+            return [self._result(c, maps, b["valid_hw"], runtime)
+                    for maps, b in zip(all_maps, prepared)]
 
     def predict_paths(self, paths: Sequence[str]) -> dict:
         """Alternating [img, cam.txt, img, cam.txt, ...] file paths -> predict()."""
