@@ -21,7 +21,10 @@ Every conv, transposed conv and matmul leaf takes `precision` (PipelineConfig.fp
 "highest" by default): with a float32 operand it runs in that mode's arithmetic, forward and
 both gradients (ops.fp32_passes: TF32 off for "highest", the bf16 passes on the TF32 tensor
 cores for "high" and "default"), as the JAX package's _precision_for does; a bf16 operand
-runs as before, whatever the mode, and so do the int8mxu convs.
+runs as before, whatever the mode, and so do the int8mxu convs. A float32 2D conv with
+groups 1 in "highest" runs its forward on ops.conv2d_fp32's CUDA kernel (an fp32 implicit
+GEMM; on the CPU the same pass_conv call as the other modes) and its gradients as
+pass_conv's.
 
 Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
   * quant (ActQuant, PipelineConfig.act_quant): every volume conv_bn / deconv_bn /
@@ -47,6 +50,7 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
+from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32, padded_channels_first
 from atvsnet_torch.ops.fp32_passes import pass_conv, pass_conv_transpose, pass_matmul
 from atvsnet_torch.ops.int8_conv import conv3d_int8
 
@@ -83,14 +87,13 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pads,
                  groups: int = 1, precision: str = "highest"):
     """Channel-last conv with explicit per-axis (beg, end) pads; a float32 x runs in the
-    `precision` mode's arithmetic (ops.fp32_passes.pass_conv)."""
+    `precision` mode's arithmetic (ops.fp32_passes.pass_conv), and a float32 2D conv with
+    groups 1 in "highest" on ops.conv2d_fp32 (the CUDA kernel for CUDA tensors)."""
     nd = x.ndim - 2
-    xc = _channels_first(x)
-    if all(lo == hi for lo, hi in pads):
-        padding = tuple(lo for lo, _ in pads)
-    else:
-        xc = F.pad(xc, [p for lo, hi in reversed(pads) for p in (lo, hi)])
-        padding = 0
+    if x.dtype == torch.float32 and nd == 2 and groups == 1 and precision == "highest":
+        return conv2d_fp32(x, w.to(x.dtype), None if b is None else b.to(x.dtype), stride, rate,
+                           pads)
+    xc, padding = padded_channels_first(x, pads)
     if x.dtype == torch.float32:
         return _channels_last(pass_conv(xc, w.to(x.dtype), precision, stride, padding, rate,
                                         groups, None if b is None else b.to(x.dtype)))

@@ -5,8 +5,8 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
-  2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu and csrc/int8_conv.cu into
-                build/atvsnet_torch/, one nvcc per source, both at once
+  2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu, csrc/int8_conv.cu and
+                csrc/conv2d_fp32.cu into build/atvsnet_torch/, one nvcc per source, all at once
   3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
                 1e-6, NaN at the same pixels) at the main paths' shapes (the train
                 shape (1,32,32,40) in fp32 and bf16 among them), at edge shapes
@@ -34,8 +34,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 the CPU (plain path): the two must agree and recover the rendered scene
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
                 spheres weights on synthetic_scene(seed=0): shapes, finiteness, exactly
-                14 kernel launches, all on the aligned path, and agreement with
-                softargmin_impl="torch"
+                14 kernel launches, all on the aligned path, 137 launches of the fp32 conv2d
+                kernel (every "highest" 2D conv), and agreement with softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms); then the same forward under
                 act_quant="int8mxu": every qin conv on the int8 kernel, 196 launches by
                 shape as INT8_MAIN_SHAPES and by path as the planner says (none generic),
@@ -50,7 +50,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 bound, an empty launch of its grid, the other ring path (fp32), the plain
                 version, the library call (cuDNN's conv with TF32 allowed on the int8 values
                 held as float32: the same sums below 2^24, held to the kernel's to the bit)
-                and cuDNN's float conv with TF32 off (the conv the int8 route replaces)
+                and cuDNN's float conv with TF32 off (the conv the int8 route replaces);
+                the fp32 conv2d kernel (phase "conv2d") at every class of the 5-view and
+                8-view forwards at 480x896 (recorded from each forward's shape counter):
+                held to the float64 product within 8 sqrt(K) 2^-24 of max sum |a||b|, equal
+                bits on a second call, kernel ms beside its bound, the call with its weight
+                packing, the plain version (the route's call before the kernel) and one
+                cuDNN conv with TF32 off (library), and their sums per forward
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket; the
                 same for the int8mxu forward
@@ -156,11 +162,11 @@ same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only kernels int8 native fusion eval train parallel
-quant depth precision helpers` runs just those phases after device and build (kernels: every kernel
-check and kernel timing above, no model; int8: the int8 conv's checks, the flagship int8mxu
-forward and its profile, the int8 conv's times; depth with the depth-split kernels' checks
-and times): a
+nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d native fusion eval train
+parallel quant depth precision helpers` runs just those phases after device and build (kernels:
+every kernel check and kernel timing above; int8: the int8 conv's checks, the flagship
+int8mxu forward and its profile, the int8 conv's times; conv2d: the fp32 conv2d kernel's
+checks and times; depth with the depth-split kernels' checks and times): a
 short run while working on one of them, which exits 1 and prints no kernels line and no ok
 line. `--only kernels --baseline DIR` also times DIR's soft-argmin kernels (another
 checkout, say the parent commit unpacked under build/) in turns with this tree's on the
@@ -219,6 +225,7 @@ from atvsnet_torch.models.tvsnet import (aam_aggregate, aam_aggregate_stacked, a
                                          refinement, tvsnet_base)
 from atvsnet_torch.nn import aam
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.ops import conv2d_fp32 as C2
 from atvsnet_torch.ops import fp32_passes
 from atvsnet_torch.ops import int8_conv as I8
 from atvsnet_torch.ops import softargmin as S
@@ -434,6 +441,23 @@ INT8_EXPECTED_LAUNCHES = sum(INT8_MAIN_SHAPES.values())   # 196
 INT8_OPS_PER_S = {"sxm": 1979e12, "pcie": 1513e12}
 # an output scale of the size the route gives: (R / 127) * (max|w| / 127) at R = 6
 INT8_SCALE = 6.0 / 127.0 * 0.4 / 127.0
+
+
+# The fp32 conv2d kernel (ops.conv2d_fp32): launches per N-view forward (every float32 2D
+# conv with groups 1 in "highest": the FEM's 62, the shallow FEM's 11, 16 per pair in CRM's
+# and the refinement's D-constant halves), and its bound on |kernel - exact| over max sum
+# |a||b| at a contraction of K: 8 sqrt(K) fp32 roundings (2^-24), the random walk of K
+# sequential fp32 additions with room; TF32's 10-bit operands (2^-11 a product) lie far
+# above it. tests/test_torch_conv2d_fp32.py holds the kernel to both.
+def conv2d_forward_launches(views: int) -> int:
+    return 62 + 11 + 16 * (views - 1)
+
+
+def conv2d_kernel_bound(k: int) -> float:
+    return 8.0 * math.sqrt(k) * 2.0 ** -24
+
+
+CONV2D_VIEWS = (5, 8)        # the served cells' and the eval cell's forwards, at 480x896
 
 
 def emit(**record):
@@ -744,8 +768,10 @@ def phase_small():
 def phase_forward(model, images, cams, cfg):
     torch.backends.cudnn.deterministic = True
     S.reset_launch_counts()
+    C2.reset_launch_counts()
     out = multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
+    conv2d_launches = C2.conv2d_fp32_cuda.launches
     launches = S.softargmin_cuda.launches
     by_path = dict(S.softargmin_cuda.path_launches)
     by_shape = dict(S.softargmin_cuda.shape_launches)
@@ -767,6 +793,8 @@ def phase_forward(model, images, cams, cfg):
     agree_ok = within_kernel_bounds(agree)
     depth = out["depth"]
     emit(phase="forward", launches=launches, expected_launches=EXPECTED_LAUNCHES,
+         conv2d_launches=conv2d_launches,
+         conv2d_expected_launches=conv2d_forward_launches(cfg.view_num),
          launches_by_path=by_path, launches_by_shape=shape_counts(by_shape), bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
          depth_min=float(depth.min()), depth_max=float(depth.max()),
          kernel_vs_plain=agree, diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
@@ -776,6 +804,9 @@ def phase_forward(model, images, cams, cfg):
         raise AssertionError(f"forward outputs wrong: shapes {bad}, non-finite {nonfinite}")
     if by_shape != MAIN_SHAPES:
         raise AssertionError(f"soft-argmin kernel launches {by_shape}, expected {MAIN_SHAPES}")
+    if conv2d_launches != conv2d_forward_launches(cfg.view_num):
+        raise AssertionError(f"fp32 conv2d kernel launches {conv2d_launches}, expected "
+                             f"{conv2d_forward_launches(cfg.view_num)}")
     if by_path["aligned"] != launches:
         raise AssertionError(f"the main path left the kernel's aligned path: {by_path}")
     if not agree_ok:
@@ -938,6 +969,7 @@ def phase_profile(model, images, cams, cfg):
     pseudo = ("Buffer Flush", "Activity Buffer Request")
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in pseudo]
     categories = {"int8 conv (this repo's CUDA kernel)": ("conv3d_int8",),
+                  "fp32 conv2d (this repo's CUDA kernel)": ("conv2d_fp32",),
                   "cuDNN conv + cuBLAS gemm (incl. FFT conv)": ("conv", "xmma", "gemm", "fft",
                                                              "Tensor5d", "nchw", "nhwc", "DSE::",
                                                              "region_transform"),
@@ -2837,6 +2869,115 @@ def int8_expected_paths() -> dict:
     return paths
 
 
+def conv2d_bound_ms(x_shape, w_shape, out_shape, stride, rate, pads, kind: str):
+    """Least time of one fp32 conv2d: the input elements some tap reads (a strided 1x1 conv
+    reads a fraction of x), the weights and the output moved once over HBM bandwidth vs
+    2 * K FLOPs per output value over the fp32 peak."""
+    def touched(n, out, k, lo):
+        return len({o * stride - lo + t * rate for o in range(out) for t in range(k)}
+                   & set(range(n)))
+
+    rows = touched(x_shape[1], out_shape[1], w_shape[2], pads[0][0])
+    cols = touched(x_shape[2], out_shape[2], w_shape[3], pads[1][0])
+    nbytes = 4 * (x_shape[0] * rows * cols * x_shape[3] + math.prod(w_shape)
+                  + math.prod(out_shape))
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    t_ops = 2 * math.prod(w_shape[1:]) * math.prod(out_shape) / FP32_FLOP_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv2d_classes(views: int) -> dict:
+    """{(x shape, w shape, stride, rate, pads): launches} of one N-view forward at 480x896,
+    D=128 with the spheres weights, from the kernel's shape counter; the launches must be
+    conv2d_forward_launches(N)."""
+    cfg = PipelineConfig(view_num=views)
+    images, cams = synthetic_scene(view_num=views, H=cfg.max_h, W=cfg.max_w, D=cfg.max_d, seed=0)
+    model = load_model(SPHERES, cfg, device="cuda")
+    C2.reset_launch_counts()
+    with torch.no_grad():
+        multi_view_forward(model, images, cams, cfg)
+    torch.cuda.synchronize()
+    classes = dict(C2.conv2d_fp32_cuda.shape_launches)
+    if C2.conv2d_fp32_cuda.launches != conv2d_forward_launches(views):
+        raise AssertionError(f"{views}-view forward: {C2.conv2d_fp32_cuda.launches} conv2d "
+                             f"launches, expected {conv2d_forward_launches(views)}")
+    del model
+    torch.cuda.empty_cache()
+    return classes
+
+
+def phase_conv2d(kind) -> dict:
+    """The fp32 conv2d kernel at every class of the 5-view (served) and 8-view (eval)
+    forwards at 480x896: held to the float64 product (conv_exact on the padded operands)
+    within conv2d_kernel_bound(K) of max sum |a||b|, the same bits on a second call, and
+    timed beside its bound, the call with its weight packing, the plain version (the route's
+    call before the kernel: F.pad where the pads differ, then cuDNN with TF32 off) and the
+    library call (one cuDNN conv, TF32 off, on pre-padded channels-last operands, default
+    algorithms as the parent's forward runs them; its error beside the kernel's). Returns
+    the per-forward sums for each view count."""
+    totals, ok = {}, True
+    for views in CONV2D_VIEWS:
+        classes = conv2d_classes(views)
+        tot = dict.fromkeys(("kernel_ms", "call_ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        ordered = sorted(classes.items(), key=lambda kv: -math.prod(kv[0][0]))
+        for i, ((xs, ws, stride, rate, pads), n) in enumerate(ordered):
+            out_shape = C2.output_shape(xs, ws, stride, rate, pads)
+            per = 4 * (math.prod(xs) + math.prod(out_shape))
+            nbuf = max(2, min(64, math.ceil(200e6 / per)))
+            g = torch.Generator(device="cuda").manual_seed(1700 + i)
+            bufs = [(torch.randn(xs, device="cuda", generator=g),
+                     torch.randn(ws, device="cuda", generator=g) / math.sqrt(math.prod(ws[1:])))
+                    for _ in range(nbuf)]
+            x, w = bufs[0]
+            p = C2.plan(xs[-1], ws[0])
+            got = C2.conv2d_fp32_cuda(x, w, None, stride, rate, pads)
+            again = C2.conv2d_fp32_cuda(x, w, None, stride, rate, pads)
+            flat = [q for lo, hi in reversed(pads) for q in (lo, hi)]
+            xc = torch.nn.functional.pad(x.movedim(-1, 1), flat)
+            spec = fp32_passes.ConvSpec.of(2, stride, 0, rate)
+            scale = float(fp32_passes.conv_exact(xc, w, spec, magnitude=True)["forward"].max())
+            exact = fp32_passes.conv_exact(xc, w, spec)["forward"].movedim(1, -1)
+            with fp32_passes.tf32(False):
+                lib_out = torch.nn.functional.conv2d(xc, w, stride=stride, dilation=rate)
+            err = float((got.double() - exact).abs().max()) / scale
+            lib_err = float((lib_out.movedim(1, -1).double() - exact).abs().max()) / scale
+            del exact, lib_out
+            bound = conv2d_kernel_bound(math.prod(ws[1:]))
+            same_bits = bool(torch.equal(got, again))
+            held = err <= bound and same_bits
+            ok = ok and held
+            packed = [(b[0], C2.packed_weights(b[1])) for b in bufs]
+            k_ms = device_ms(lambda x_, wp_: C2._launch(x_, wp_, None, ws, stride, rate, pads, p),
+                             packed, 20)
+            c_ms = device_ms(lambda x_, w_: C2.conv2d_fp32_cuda(x_, w_, None, stride, rate, pads),
+                             bufs, 20)
+            with torch.no_grad():
+                pl_ms = device_ms(lambda x_, w_: C2.conv2d_fp32_torch(x_, w_, None, stride, rate,
+                                                                      pads), bufs, 10)
+            padded = [(torch.nn.functional.pad(b[0].movedim(-1, 1), flat), b[1]) for b in bufs[:2]]
+            with fp32_passes.tf32(False):
+                lib_ms = device_ms(lambda x_, w_: torch.nn.functional.conv2d(
+                    x_, w_, stride=stride, dilation=rate), padded, 10)
+            b_ms, b_by = conv2d_bound_ms(xs, ws, out_shape, stride, rate, pads, kind)
+            emit(phase="conv2d", views=views, x=list(xs), w=list(ws), stride=stride, rate=rate,
+                 pads=[list(q) for q in pads], launches_per_forward=n, tile=p["tile"],
+                 path=p["path"], kernel_ms=k_ms, call_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
+                 kernel_over_bound=k_ms / b_ms, plain_ms=pl_ms, library_ms=lib_ms,
+                 error_over_max_sum_abs=err, library_error=lib_err, error_bound=bound,
+                 same_bits=same_bits, ok=held)
+            for key, v in (("kernel_ms", k_ms), ("call_ms", c_ms), ("plain_ms", pl_ms),
+                           ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                tot[key] += n * v
+            del bufs, packed, padded, got, again, xc
+            torch.cuda.empty_cache()
+        emit(phase="conv2d", what=f"per {views}-view forward", classes=len(classes),
+             launches=sum(classes.values()), **tot)
+        totals[views] = tot
+    if not ok:
+        raise AssertionError("conv2d: a class missed its bound or changed bits between calls")
+    return totals
+
+
 def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     """The flagship forward under act_quant="int8mxu" (deterministic cuDNN): every qin conv
     on the int8 kernel, counted from 0 over this forward by shape (INT8_MAIN_SHAPES) and by
@@ -3234,8 +3375,8 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
-                    choices=["kernels", "int8", "native", "fusion", "eval", "train", "parallel",
-                             "quant", "depth", "precision", "helpers"],
+                    choices=["kernels", "int8", "conv2d", "native", "fusion", "eval", "train",
+                             "parallel", "quant", "depth", "precision", "helpers"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
@@ -3253,25 +3394,28 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, bandwidth_assumed=HBM_BYTES_PER_S[kind])
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        for built in [pool.submit(m.build, True) for m in (S, I8)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
+        for built in [pool.submit(m.build, True) for m in (S, I8, C2)]:
             built.result()
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
          ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln],
          int8_library=os.path.relpath(I8.LIBRARY, ROOT),
-         int8_ptxas=[ln for ln in I8.build_log.splitlines() if "ptxas" in ln])
+         int8_ptxas=[ln for ln in I8.build_log.splitlines() if "ptxas" in ln],
+         conv2d_library=os.path.relpath(C2.LIBRARY, ROOT),
+         conv2d_ptxas=[ln for ln in C2.build_log.splitlines() if "ptxas" in ln])
 
     def kernels():
         phase_kernel(), phase_kernel_backward(), phase_kernel_split(), phase_kernel_int8()
         phase_timing_kernel(kind), phase_timing_backward(kind), phase_timing_split(kind)
         phase_timing_int8(kind)
+        phase_conv2d(kind)
         if args.baseline:
             phase_kernel_turns(load_baseline(args.baseline), args.baseline)
 
     if args.only:
         for phase in args.only:
             {"kernels": kernels, "int8": lambda: phase_int8_only(kind, args.baseline),
-             "native": phase_native,
+             "conv2d": lambda: phase_conv2d(kind), "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
              "quant": phase_quant, "helpers": phase_helpers, "precision": phase_precision,
@@ -3295,6 +3439,7 @@ def main() -> int:
     bwd_totals, bwd_bound_by = phase_timing_backward(kind)
     split_totals, split_bound_by = phase_timing_split(kind)
     int8_totals, int8_bound_by = phase_timing_int8(kind)
+    conv2d_totals = phase_conv2d(kind)
     phase_profile(model, images, cams, cfg)
     phase_profile(model, images, cams, cfg.replace(act_quant="int8mxu"))
     phase_pair_batch(model, images, cams, cfg)
@@ -3373,6 +3518,14 @@ def main() -> int:
         "library": "cuDNN's conv3d with TF32 allowed on the int8 values held as float32: the "
                    "same sums below 2^24 (library_sums_equal: to the bit at every class); "
                    "cudnn_float_ms is the float conv with TF32 off, a yardstick",
+    }, {
+        "name": "conv2d_fp32", "kernel": "conv2d_fp32_igemm_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/conv2d_fp32.cu",
+        "replaces": "none: cuDNN under the port's fp32 'highest' 2D convs (the JAX package "
+                    "leaves them to XLA, atvsnet_tpu/nn/layers.py)",
+        "launches_per_forward": {v: conv2d_forward_launches(v) for v in CONV2D_VIEWS},
+        "per_forward": conv2d_totals,
+        "library": "one cuDNN conv2d, TF32 off, default algorithms, on pre-padded operands",
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0
