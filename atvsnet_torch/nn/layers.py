@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32, padded_channels_first
 from atvsnet_torch.ops.fp32_passes import pass_conv, pass_conv_transpose, pass_matmul
 from atvsnet_torch.ops.int8_conv import conv3d_int8
+from atvsnet_torch.utils.profiling import TRACER
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
@@ -210,23 +211,29 @@ def quantize_act(y: torch.Tensor, quant: Optional[ActQuant], nonneg: bool = Fals
     fp32 arithmetic with the scale as an fp32 scalar, as the JAX package's weakly typed
     Python floats give it, and round half to even in both: the same y gives the same bits.
     The result has y's dtype. Inference only: round() has no gradient.
+
+    While a profiler records (utils.profiling.TRACER), a quantized link is the span
+    `quant.act`, with CUDA events on a CUDA y, and adds its elements to the counter
+    `quant.act.elements`; quant None records nothing.
     """
     if quant is None or y.ndim != 5:
         return y
-    yf = y.to(torch.float32)
-    if quant.mode == "int8":
-        peak = yf.abs().amax()
-        if split is not None:
-            peak = split.all_max(peak)
-        s = peak / _scalar(127.0, y.device) + 1e-12
-        lo, hi = -127.0, 127.0
-    elif quant.mode in ("int8s", "int8mxu"):
-        s = _scalar(quant.range / (255.0 if nonneg else 127.0), y.device)
-        lo, hi = (0.0, 255.0) if nonneg else (-127.0, 127.0)
-    else:
-        raise ValueError(f"act_quant={quant.mode!r}: expected int8, int8s or int8mxu")
-    q = torch.clamp(torch.round(yf / s), lo, hi).to(torch.uint8 if lo == 0.0 else torch.int8)
-    return (q.to(torch.float32) * s).to(y.dtype)
+    with TRACER.span("quant.act", device=y.device, chain=False):
+        TRACER.count("quant.act.elements", y.numel())
+        yf = y.to(torch.float32)
+        if quant.mode == "int8":
+            peak = yf.abs().amax()
+            if split is not None:
+                peak = split.all_max(peak)
+            s = peak / _scalar(127.0, y.device) + 1e-12
+            lo, hi = -127.0, 127.0
+        elif quant.mode in ("int8s", "int8mxu"):
+            s = _scalar(quant.range / (255.0 if nonneg else 127.0), y.device)
+            lo, hi = (0.0, 255.0) if nonneg else (-127.0, 127.0)
+        else:
+            raise ValueError(f"act_quant={quant.mode!r}: expected int8, int8s or int8mxu")
+        q = torch.clamp(torch.round(yf / s), lo, hi).to(torch.uint8 if lo == 0.0 else torch.int8)
+        return (q.to(torch.float32) * s).to(y.dtype)
 
 
 def quant_conv_operands(x: torch.Tensor, w: torch.Tensor, range_: float):
@@ -234,13 +241,17 @@ def quant_conv_operands(x: torch.Tensor, w: torch.Tensor, range_: float):
     x onto the signed +-range lattice, si = range / 127; w per tensor, sw = max|w| / 127 +
     1e-12; both rounded half to even and clipped to [-127, 127]. Returns (xq int8, wq int8,
     si * sw), the last an fp32 scalar tensor that turns the int32 sums back into x's scale.
-    fp32 arithmetic with fp32 scalar divisors, as in quantize_act: the same bits as JAX's."""
-    si = _scalar(range_ / 127.0, x.device)
-    xq = torch.clamp(torch.round(x.to(torch.float32) / si), -127.0, 127.0).to(torch.int8)
-    wf = w.to(torch.float32)
-    sw = wf.abs().amax() / _scalar(127.0, w.device) + 1e-12
-    wq = torch.clamp(torch.round(wf / sw), -127.0, 127.0).to(torch.int8)
-    return xq, wq, si * sw
+    fp32 arithmetic with fp32 scalar divisors, as in quantize_act: the same bits as JAX's.
+    Traced as the span `quant.operands` (the conv itself is not inside it), which adds the
+    elements of x and w to the counter `quant.operands.elements`."""
+    with TRACER.span("quant.operands", device=x.device, chain=False):
+        TRACER.count("quant.operands.elements", x.numel() + w.numel())
+        si = _scalar(range_ / 127.0, x.device)
+        xq = torch.clamp(torch.round(x.to(torch.float32) / si), -127.0, 127.0).to(torch.int8)
+        wf = w.to(torch.float32)
+        sw = wf.abs().amax() / _scalar(127.0, w.device) + 1e-12
+        wq = torch.clamp(torch.round(wf / sw), -127.0, 127.0).to(torch.int8)
+        return xq, wq, si * sw
 
 
 def conv_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 1, rate: int = 1,

@@ -13,9 +13,10 @@ open at that time), the index of its parent, and a request id that it shares wit
 span under the same root. With a CUDA `device` it also records a pair of CUDA events on the
 current stream, resolved only when read (Span.device_ms). Spans are kept in memory, at most
 MAX_SPANS of them (the rest are counted in `dropped`); device_trace writes a session's to
-<logdir>/spans.jsonl. They are not torch.profiler.record_function ranges: those can appear
+<logdir>/spans.jsonl. Spans are not torch.profiler.record_function ranges: those can appear
 as device-side annotations in the profiler's CUDA activity, and the device trace holds the
-same operations with spans as without.
+same operations with spans as without. `TRACER.count(name, n)` adds n to the counter `name`
+in `TRACER.counters`, also only while a session records.
 """
 
 from __future__ import annotations
@@ -82,20 +83,20 @@ class _Clock:
 class _Stage:
     """The context of one recorded stage; closing it twice closes it once."""
 
-    __slots__ = ("timer", "name", "device", "request", "into", "key", "span")
+    __slots__ = ("timer", "name", "device", "request", "into", "key", "chain", "span")
 
-    def __init__(self, timer, name, device, request, into, key):
+    def __init__(self, timer, name, device, request, into, key, chain=True):
         self.timer, self.name, self.device, self.request = timer, name, device, request
-        self.into, self.key, self.span = into, key, None
+        self.into, self.key, self.chain, self.span = into, key, chain, None
 
     def __enter__(self) -> Span:
-        self.span = self.timer._open(self.name, self.device, self.request)
+        self.span = self.timer._open(self.name, self.device, self.request, self.chain)
         return self.span
 
     def __exit__(self, *exc):
         span, self.span = self.span, None
         if span is not None:
-            seconds = self.timer._close(span, self.device)
+            seconds = self.timer._close(span, self.device, self.chain)
             if self.into is not None:
                 self.into[self.key] += seconds
         return False
@@ -131,13 +132,16 @@ class StageTimer:
     from the start event to the end event, idle time within included. Inside a device
     stage, a device stage that opens right after a sibling device stage closed (nothing
     recorded between them) starts at that sibling's end event: the stages of a sequence
-    share their boundaries.
+    share their boundaries. A stage opened with chain=False records both of its events and
+    lends its end event to no sibling: a short span between which and the next the host
+    launches device work of its own (the quantization spans of nn.layers).
     """
 
     def __init__(self, limit: int = MAX_SPANS):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
         self.spans: list[Span] = []
+        self.counters: Dict[str, int] = {}
         self.dropped = 0
         self.limit = limit
         self._lock = threading.Lock()
@@ -145,20 +149,27 @@ class StageTimer:
         self._requests = itertools.count()
 
     def stage(self, name: str, device: Optional[torch.device] = None, into=None,
-              key: Optional[str] = None, request=None) -> _Stage:
+              key: Optional[str] = None, request=None, chain: bool = True) -> _Stage:
         """Time and record the block as the span `name`. device: where the block's work
         runs (CUDA events when it is a CUDA device). into, key: also add the block's
         seconds to into[key]. request: the id of a root span (by default a new one; a child
-        takes its parent's)."""
-        return _Stage(self, name, device, request, into, key)
+        takes its parent's). chain: share a boundary event with adjacent sibling stages
+        (see the class)."""
+        return _Stage(self, name, device, request, into, key, chain)
 
     def span(self, name: str, device: Optional[torch.device] = None, into=None,
-             key: Optional[str] = None, request=None):
+             key: Optional[str] = None, request=None, chain: bool = True):
         """stage() while a torch.profiler session is recording; otherwise the shared null
         context, or, with `into`, a plain timer of into[key]."""
         if not recording():
             return _NULL if into is None else _Clock(into, key)
-        return _Stage(self, name, device, request, into, key)
+        return _Stage(self, name, device, request, into, key, chain)
+
+    def count(self, name: str, n: int) -> None:
+        """Add n to counters[name] while a torch.profiler session is recording."""
+        if recording():
+            with self._lock:
+                self.counters[name] = self.counters.get(name, 0) + n
 
     def _stack(self) -> list:
         local = self._local
@@ -166,7 +177,7 @@ class StageTimer:
             local.stack, local.last = [], None
         return local.stack
 
-    def _open(self, name, device, request) -> Span:
+    def _open(self, name, device, request, chain=True) -> Span:
         stack = self._stack()
         top = stack[-1] if stack else None
         parent = None if top is None else top.index
@@ -175,7 +186,7 @@ class StageTimer:
         events = None
         if device is not None and device.type == "cuda":
             last = self._local.last
-            if (last is not None and last.parent == parent and top is not None
+            if (chain and last is not None and last.parent == parent and top is not None
                     and top.events is not None):
                 start = last.events[1]
             else:
@@ -193,7 +204,7 @@ class StageTimer:
         stack.append(span)
         return span
 
-    def _close(self, span: Span, device) -> float:
+    def _close(self, span: Span, device, chain=True) -> float:
         """Ends the span; returns its seconds."""
         if span.events is not None:
             span.events[1].record(torch.cuda.current_stream(device))
@@ -201,7 +212,7 @@ class StageTimer:
         stack = self._stack()
         while stack and stack.pop() is not span:
             pass  # a child left open (an exception inside it) closes with its parent
-        self._local.last = span if span.events is not None else None
+        self._local.last = span if chain and span.events is not None else None
         seconds = (span.end_ns - span.start_ns) / 1e9
         self.totals[span.name] = self.totals.get(span.name, 0.0) + seconds
         self.counts[span.name] = self.counts.get(span.name, 0) + 1

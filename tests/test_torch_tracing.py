@@ -5,7 +5,9 @@ five stages, the served request, the eval driver, the fusion.
 On the CPU: with no profiler session a span records nothing and costs one shared null
 context; under a session spans nest, share their root's request id and keep to the bound;
 the forward, DepthEstimator.predict / predict_many, run_eval_pc and fuse_scene record
-their spans in order while their results and returned clocks stay as without; device_trace
+their spans in order while their results and returned clocks stay as without; an int8mxu
+forward records a span and counts the elements of every quantized link and every qin conv's
+operands, and one without quantization records and counts none; device_trace
 writes the session's spans beside its one Chrome trace.
 
 On the card (marked `cuda`, skipped here at run time): a span's host interval holds its
@@ -28,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 from atvsnet_torch.config import PipelineConfig
 from atvsnet_torch.data.synthetic import synthetic_scene, write_eth3d_scene
 from atvsnet_torch.models.atvsnet import center_images, multi_view_forward
+from atvsnet_torch.nn import layers as L
 from atvsnet_torch.params import init_model, load_model
 from atvsnet_torch.serving import DepthEstimator
 from atvsnet_torch.utils import profiling
@@ -171,6 +174,24 @@ def test_sibling_device_stages_share_their_boundary_events(monkeypatch):
     assert 1 + a.device_ms() + b.device_ms() + 1 + c.device_ms() + 1 == outer.device_ms()
 
 
+def test_unchained_device_spans_keep_their_own_events(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    cuda = torch.device("cuda")
+    timer = StageTimer()
+    with _session():
+        with timer.span("outer", device=cuda):
+            for name, chain in (("a", True), ("q1", False), ("q2", False), ("b", True),
+                                ("c", True)):
+                with timer.span(name, device=cuda, chain=chain):
+                    pass
+    outer, a, q1, q2, b, c = timer.spans
+    # an unchained span neither takes a sibling's end event nor lends its own
+    assert q1.events[0] is not a.events[1] and q2.events[0] is not q1.events[1]
+    assert b.events[0] is not q2.events[1] and c.events[0] is b.events[1]
+    assert len({id(ev) for s in timer.spans for ev in s.events}) == 2 * 6 - 1
+
+
 def test_a_span_that_raises_closes_and_leaves_no_parent_behind():
     first = len(TRACER.spans)
     with _session():
@@ -227,6 +248,49 @@ def test_the_forward_records_its_stages_and_its_outputs_do_not_move():
         [forward.end_ns]
     assert bounds == sorted(bounds)           # in order, none overlapping, inside forward
     assert set(on) == set(off)
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
+
+
+@pytest.mark.parametrize("mode", ["int8mxu", "none"])
+def test_the_quantization_records_its_spans_and_counts(monkeypatch, mode):
+    cfg = PipelineConfig(**SMALL, act_quant=mode)
+    model = init_model(cfg, 0, "cpu")
+    images, cams = synthetic_scene(view_num=3, H=64, W=96, D=16, seed=2)
+    images = center_images(torch.from_numpy(images))
+    off = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    elements = {"quant.act.elements": 0, "quant.operands.elements": 0}
+    act, operands = L.quantize_act, L.quant_conv_operands
+
+    def counted_act(y, quant, **kw):
+        if quant is not None and y.ndim == 5:
+            elements["quant.act.elements"] += y.numel()
+        return act(y, quant, **kw)
+
+    def counted_operands(x, w, range_):
+        elements["quant.operands.elements"] += x.numel() + w.numel()
+        return operands(x, w, range_)
+
+    monkeypatch.setattr(L, "quantize_act", counted_act)
+    monkeypatch.setattr(L, "quant_conv_operands", counted_operands)
+    first, before = len(TRACER.spans), dict(TRACER.counters)
+    with _session():
+        on = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    spans = _recorded(first)
+    names = [s.name for s in spans]
+    moved = {k: TRACER.counters.get(k, 0) - before.get(k, 0) for k in elements}
+    if mode == "none":
+        assert not any(n.startswith("quant.") for n in names) and moved == elements == {
+            "quant.act.elements": 0, "quant.operands.elements": 0}
+    else:
+        # 3 views: 4 CRM passes of 30 links and 20 qin convs, 2 refinements of 14 and 8, the
+        # two AAMs' 2 qin convs each
+        assert names.count("quant.act") == 4 * 30 + 2 * 14
+        assert names.count("quant.operands") == 4 * 20 + 2 * 8 + 4
+        stages = {s.index: s.name for s in spans if s.name in STAGES}
+        assert {stages[s.parent] for s in spans if s.name.startswith("quant.")} == {
+            "forward.pairs", "forward.aam1", "forward.refine", "forward.aam2"}
+        assert moved == elements and min(moved.values()) > 0
     for k in off:
         assert torch.equal(on[k], off[k]), k
 
