@@ -21,9 +21,10 @@ Every conv, transposed conv and matmul leaf takes `precision` (PipelineConfig.fp
 "highest" by default): with a float32 operand it runs in that mode's arithmetic, forward and
 both gradients (ops.fp32_passes: TF32 off for "highest", the bf16 passes on the TF32 tensor
 cores for "high" and "default"), as the JAX package's _precision_for does; a bf16 operand
-runs as before, whatever the mode, and so do the int8mxu convs. A float32 2D conv with
-groups 1 in "highest" runs its forward on ops.conv2d_fp32's CUDA kernel (an fp32 implicit
-GEMM; on the CPU the same pass_conv call as the other modes) and its gradients as
+runs as before, whatever the mode, and so do the int8mxu convs. A float32 conv with groups
+1 in "highest" runs its forward on a CUDA kernel of the port, 2D convs on ops.conv2d_fp32's
+(an fp32 implicit GEMM) and 3x3x3 3D convs at rate 1 on ops.conv3d_fp32's (an fp32 direct
+convolution), on the CPU the same pass_conv call as the other modes, and its gradients as
 pass_conv's.
 
 Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
@@ -37,7 +38,8 @@ Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
     neighbours, batch_stat_norm sums its statistics over the depth group.
 
 The TPU package's depth-tap decompositions of 3D convs are TPU layout work and are not
-ported: a float 3D conv here is one cuDNN conv3d.
+ported: a float32 3D conv in "highest" here is one launch of ops.conv3d_fp32's kernel, in
+the other modes or in bf16 one cuDNN conv3d.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ import torch.nn as tnn
 import torch.nn.functional as F
 
 from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32, padded_channels_first
+from atvsnet_torch.ops.conv3d_fp32 import conv3d_fp32
+from atvsnet_torch.ops.conv3d_fp32 import takes as conv3d_fp32_takes
 from atvsnet_torch.ops.fp32_passes import pass_conv, pass_conv_transpose, pass_matmul
 from atvsnet_torch.ops.int8_conv import conv3d_int8
 from atvsnet_torch.utils.profiling import TRACER
@@ -88,12 +92,16 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pads,
                  groups: int = 1, precision: str = "highest"):
     """Channel-last conv with explicit per-axis (beg, end) pads; a float32 x runs in the
-    `precision` mode's arithmetic (ops.fp32_passes.pass_conv), and a float32 2D conv with
-    groups 1 in "highest" on ops.conv2d_fp32 (the CUDA kernel for CUDA tensors)."""
+    `precision` mode's arithmetic (ops.fp32_passes.pass_conv), and a float32 conv with groups
+    1 in "highest" on ops.conv2d_fp32 (2D) or ops.conv3d_fp32 (3D, 3x3x3, rate 1, stride 1
+    or 2): the CUDA kernels for CUDA tensors."""
     nd = x.ndim - 2
-    if x.dtype == torch.float32 and nd == 2 and groups == 1 and precision == "highest":
-        return conv2d_fp32(x, w.to(x.dtype), None if b is None else b.to(x.dtype), stride, rate,
-                           pads)
+    if x.dtype == torch.float32 and groups == 1 and precision == "highest":
+        bias = None if b is None else b.to(x.dtype)
+        if nd == 2:
+            return conv2d_fp32(x, w.to(x.dtype), bias, stride, rate, pads)
+        if nd == 3 and conv3d_fp32_takes(w.shape, stride, rate):
+            return conv3d_fp32(x, w.to(x.dtype), bias, stride, rate, pads)
     xc, padding = padded_channels_first(x, pads)
     if x.dtype == torch.float32:
         return _channels_last(pass_conv(xc, w.to(x.dtype), precision, stride, padding, rate,

@@ -200,6 +200,26 @@ def conv2d_fp32_cuda(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
     return out
 
 
+def highest_backward(ctx, g: torch.Tensor) -> tuple:
+    """(grad x, grad w, grad b) of a channel-last conv whose forward saved (x, w) and set
+    ctx.stride, .rate, .pads and .bias_sizes: pass_conv's "highest" backward (aten's
+    convolution_backward, TF32 off) on the padded channel-first operands, the pads then
+    dropped from grad x as F.pad's backward drops them. Any number of spatial axes."""
+    x, w = ctx.saved_tensors
+    need_x, need_w, need_b = ctx.needs_input_grad[:3]
+    xc, padding = padded_channels_first(x, ctx.pads)
+    spec = ConvSpec.of(x.ndim - 2, ctx.stride, padding, ctx.rate)
+    with tf32(False):
+        gx, gw, gb = spec.backward(xc, g.movedim(-1, 1), w, [need_x, need_w, need_b],
+                                   ctx.bias_sizes)
+    if gx is not None:
+        if any(lo != hi for lo, hi in ctx.pads):
+            gx = gx[(slice(None), slice(None)) + tuple(
+                slice(lo, lo + n) for (lo, _), n in zip(ctx.pads, x.shape[1:-1]))]
+        gx = gx.movedim(1, -1)
+    return gx, gw, gb
+
+
 class Conv2dFp32Function(torch.autograd.Function):
     """The kernel's forward; the backward is pass_conv's "highest" backward (aten's
     convolution_backward with TF32 off) on the same padded channel-first operands."""
@@ -214,19 +234,7 @@ class Conv2dFp32Function(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        xc, padding = padded_channels_first(x, ctx.pads)
-        spec = ConvSpec.of(2, ctx.stride, padding, ctx.rate)
-        with tf32(False):
-            gx, gw, gb = spec.backward(xc, g.movedim(-1, 1), w, [need_x, need_w, need_b],
-                                       ctx.bias_sizes)
-        if gx is not None:
-            if any(lo != hi for lo, hi in ctx.pads):   # F.pad's backward: drop the pads
-                (th, _), (lw, _) = ctx.pads
-                gx = gx[:, :, th:th + x.shape[1], lw:lw + x.shape[2]]
-            gx = gx.movedim(1, -1)
-        return gx, gw, gb, None, None, None
+        return highest_backward(ctx, g) + (None, None, None)
 
 
 def conv2d_fp32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride: int,

@@ -5,8 +5,9 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
-  2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu, csrc/int8_conv.cu and
-                csrc/conv2d_fp32.cu into build/atvsnet_torch/, one nvcc per source, all at once
+  2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu, csrc/int8_conv.cu,
+                csrc/conv2d_fp32.cu and csrc/conv3d_fp32.cu into build/atvsnet_torch/, one
+                nvcc per source, all at once
   3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
                 1e-6, NaN at the same pixels) at the main paths' shapes (the train
                 shape (1,32,32,40) in fp32 and bf16 among them), at edge shapes
@@ -35,11 +36,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   5. forward    multi_view_forward at 5 views, 480x896, D=128, fp32, with the trained
                 spheres weights on synthetic_scene(seed=0): shapes, finiteness, exactly
                 14 kernel launches, all on the aligned path, 137 launches of the fp32 conv2d
-                kernel (every "highest" 2D conv), and agreement with softargmin_impl="torch"
+                kernel (every "highest" 2D conv) and 228 of the fp32 conv3d kernel (every
+                "highest" 3D conv), and agreement with softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms); then the same forward under
                 act_quant="int8mxu": every qin conv on the int8 kernel, 196 launches by
                 shape as INT8_MAIN_SHAPES and by path as the planner says (none generic),
-                the soft-argmin's 14 as before
+                the soft-argmin's 14 as before, the conv3d kernel's 32 (the float entry
+                convs that are not qin)
   6. timing     steady-state forward time and peak memory (default and deterministic
                 cuDNN algorithms); the forward with the port's activation
                 (torch.maximum(y, 0), the JAX package's tie rule) against torch.relu, in
@@ -56,7 +59,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 held to the float64 product within 8 sqrt(K) 2^-24 of max sum |a||b|, equal
                 bits on a second call, kernel ms beside its bound, the call with its weight
                 packing, the plain version (the route's call before the kernel) and one
-                cuDNN conv with TF32 off (library), and their sums per forward
+                cuDNN conv with TF32 off (library), and their sums per forward; the fp32
+                conv3d kernel (phase "conv3d") the same way at every class of both forwards
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket; the
                 same for the int8mxu forward
@@ -162,11 +166,11 @@ same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d native fusion eval train
+nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d native fusion eval train
 parallel quant depth precision helpers` runs just those phases after device and build (kernels:
 every kernel check and kernel timing above; int8: the int8 conv's checks, the flagship
-int8mxu forward and its profile, the int8 conv's times; conv2d: the fp32 conv2d kernel's
-checks and times; depth with the depth-split kernels' checks and times): a
+int8mxu forward and its profile, the int8 conv's times; conv2d, conv3d: the fp32 conv2d or
+conv3d kernel's checks and times; depth with the depth-split kernels' checks and times): a
 short run while working on one of them, which exits 1 and prints no kernels line and no ok
 line. `--only kernels --baseline DIR` also times DIR's soft-argmin kernels (another
 checkout, say the parent commit unpacked under build/) in turns with this tree's on the
@@ -226,6 +230,7 @@ from atvsnet_torch.models.tvsnet import (aam_aggregate, aam_aggregate_stacked, a
 from atvsnet_torch.nn import aam
 from atvsnet_torch.nn import layers as L
 from atvsnet_torch.ops import conv2d_fp32 as C2
+from atvsnet_torch.ops import conv3d_fp32 as C3
 from atvsnet_torch.ops import fp32_passes
 from atvsnet_torch.ops import int8_conv as I8
 from atvsnet_torch.ops import softargmin as S
@@ -458,6 +463,39 @@ def conv2d_kernel_bound(k: int) -> float:
 
 
 CONV2D_VIEWS = (5, 8)        # the served cells' and the eval cell's forwards, at 480x896
+
+
+# The fp32 conv3d kernel (ops.conv3d_fp32): launches per N-view forward (every float32 3D
+# conv in "highest": AAM1's and AAM2's [unique | shared] and output convs, 4; per pair 56,
+# the two CRM passes and the refinement), and those of the int8mxu forward (the float entry
+# convs that are not qin: CRM's two per pass and the refinement's four, 8 a pair). The
+# kernel is held to the bound of the 2D kernel, conv2d_kernel_bound(27 Ci).
+def conv3d_forward_launches(views: int) -> int:
+    return 4 + 56 * (views - 1)
+
+
+def conv3d_int8mxu_launches(views: int) -> int:
+    return 8 * (views - 1)
+
+
+# (name, ((B, D, H, W) of x, Ci, Co, stride)): the classes of the 5-view forward at
+# 480x896, D = 128 (TF-SAME pads: (1, 1) at stride 1, (0, 1) at stride 2)
+CONV3D_CLASSES = [
+    ("CRM entry, refine 0_1 32->8", ((1, 128, 120, 224), 32, 8, 1)),
+    ("AAM [unique | shared] 8->16", ((4, 128, 120, 224), 8, 16, 1)),
+    ("refine photo entry 16->8", ((1, 128, 120, 224), 16, 8, 1)),
+    ("CRM 1_0, refine 1_0 32->16 s2", ((1, 128, 120, 224), 32, 16, 2)),
+    ("CRM 0_x 8->8", ((1, 128, 120, 224), 8, 8, 1)),
+    ("CRM 1_0 8->16 s2", ((1, 128, 120, 224), 8, 16, 2)),
+    ("prob, d_cost_vol, AAM output 8->1", ((1, 128, 120, 224), 8, 1, 1)),
+    ("refine geo entry 2->8", ((1, 128, 120, 224), 2, 8, 1)),
+    ("prob / vis-hull entry 1->8", ((1, 128, 120, 224), 1, 8, 1)),
+    ("1_1 16->16", ((1, 64, 60, 112), 16, 16, 1)),
+    ("2_0 16->32 s2", ((1, 64, 60, 112), 16, 32, 2)),
+    ("2_1 32->32", ((1, 32, 30, 56), 32, 32, 1)),
+    ("3_0 32->64 s2", ((1, 32, 30, 56), 32, 64, 2)),
+    ("3_1 64->64", ((1, 16, 15, 28), 64, 64, 1)),
+]
 
 
 def emit(**record):
@@ -769,9 +807,11 @@ def phase_forward(model, images, cams, cfg):
     torch.backends.cudnn.deterministic = True
     S.reset_launch_counts()
     C2.reset_launch_counts()
+    C3.reset_launch_counts()
     out = multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
     conv2d_launches = C2.conv2d_fp32_cuda.launches
+    conv3d_launches = C3.conv3d_fp32_cuda.launches
     launches = S.softargmin_cuda.launches
     by_path = dict(S.softargmin_cuda.path_launches)
     by_shape = dict(S.softargmin_cuda.shape_launches)
@@ -795,6 +835,8 @@ def phase_forward(model, images, cams, cfg):
     emit(phase="forward", launches=launches, expected_launches=EXPECTED_LAUNCHES,
          conv2d_launches=conv2d_launches,
          conv2d_expected_launches=conv2d_forward_launches(cfg.view_num),
+         conv3d_launches=conv3d_launches,
+         conv3d_expected_launches=conv3d_forward_launches(cfg.view_num),
          launches_by_path=by_path, launches_by_shape=shape_counts(by_shape), bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
          depth_min=float(depth.min()), depth_max=float(depth.max()),
          kernel_vs_plain=agree, diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
@@ -807,6 +849,9 @@ def phase_forward(model, images, cams, cfg):
     if conv2d_launches != conv2d_forward_launches(cfg.view_num):
         raise AssertionError(f"fp32 conv2d kernel launches {conv2d_launches}, expected "
                              f"{conv2d_forward_launches(cfg.view_num)}")
+    if conv3d_launches != conv3d_forward_launches(cfg.view_num):
+        raise AssertionError(f"fp32 conv3d kernel launches {conv3d_launches}, expected "
+                             f"{conv3d_forward_launches(cfg.view_num)}")
     if by_path["aligned"] != launches:
         raise AssertionError(f"the main path left the kernel's aligned path: {by_path}")
     if not agree_ok:
@@ -970,6 +1015,7 @@ def phase_profile(model, images, cams, cfg):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in pseudo]
     categories = {"int8 conv (this repo's CUDA kernel)": ("conv3d_int8",),
                   "fp32 conv2d (this repo's CUDA kernel)": ("conv2d_fp32",),
+                  "fp32 conv3d (this repo's CUDA kernel)": ("conv3d_fp32",),
                   "cuDNN conv + cuBLAS gemm (incl. FFT conv)": ("conv", "xmma", "gemm", "fft",
                                                              "Tensor5d", "nchw", "nhwc", "DSE::",
                                                              "region_transform"),
@@ -2886,21 +2932,22 @@ def conv2d_bound_ms(x_shape, w_shape, out_shape, stride, rate, pads, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv2d_classes(views: int) -> dict:
-    """{(x shape, w shape, stride, rate, pads): launches} of one N-view forward at 480x896,
-    D=128 with the spheres weights, from the kernel's shape counter; the launches must be
-    conv2d_forward_launches(N)."""
+def kernel_classes(launcher, expected: int, views: int) -> dict:
+    """{shape key: launches} of one N-view forward at 480x896, D=128 with the spheres weights,
+    from the shape counter of `launcher` (conv2d_fp32_cuda or conv3d_fp32_cuda), whose
+    launches must be `expected`."""
     cfg = PipelineConfig(view_num=views)
     images, cams = synthetic_scene(view_num=views, H=cfg.max_h, W=cfg.max_w, D=cfg.max_d, seed=0)
     model = load_model(SPHERES, cfg, device="cuda")
     C2.reset_launch_counts()
+    C3.reset_launch_counts()
     with torch.no_grad():
         multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
-    classes = dict(C2.conv2d_fp32_cuda.shape_launches)
-    if C2.conv2d_fp32_cuda.launches != conv2d_forward_launches(views):
-        raise AssertionError(f"{views}-view forward: {C2.conv2d_fp32_cuda.launches} conv2d "
-                             f"launches, expected {conv2d_forward_launches(views)}")
+    classes = dict(launcher.shape_launches)
+    if launcher.launches != expected:
+        raise AssertionError(f"{views}-view forward: {launcher.launches} launches of "
+                             f"{launcher.__name__}, expected {expected}")
     del model
     torch.cuda.empty_cache()
     return classes
@@ -2917,7 +2964,7 @@ def phase_conv2d(kind) -> dict:
     the per-forward sums for each view count."""
     totals, ok = {}, True
     for views in CONV2D_VIEWS:
-        classes = conv2d_classes(views)
+        classes = kernel_classes(C2.conv2d_fp32_cuda, conv2d_forward_launches(views), views)
         tot = dict.fromkeys(("kernel_ms", "call_ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
         ordered = sorted(classes.items(), key=lambda kv: -math.prod(kv[0][0]))
         for i, ((xs, ws, stride, rate, pads), n) in enumerate(ordered):
@@ -2978,6 +3025,86 @@ def phase_conv2d(kind) -> dict:
     return totals
 
 
+def conv3d_bound_ms(x_shape, w_shape, out_shape, kind: str):
+    """Least time of one fp32 3x3x3 conv3d: the input (every element is some tap's at
+    stride 1 and 2), the weights and the output moved once over HBM bandwidth vs 2 * 27 * Ci
+    FLOPs per output value over the fp32 peak."""
+    nbytes = 4 * (math.prod(x_shape) + math.prod(w_shape) + math.prod(out_shape))
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    t_ops = 2 * math.prod(w_shape[1:]) * math.prod(out_shape) / FP32_FLOP_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_conv3d(kind) -> dict:
+    """The fp32 conv3d kernel at every class of the 5-view (served) and 8-view (eval)
+    forwards at 480x896, D=128: held to the float64 product (conv_exact on the padded
+    operands) within conv2d_kernel_bound(27 Ci) of max sum |a||b|, the same bits on a second
+    call, and timed beside its bound, the call through the wrapper, the plain version (the
+    route's call before the kernel: F.pad where the pads differ, then cuDNN with TF32 off)
+    and the library call (one cuDNN conv3d, TF32 off, on pre-padded channels-last
+    operands, default algorithms as the parent's forward ran them; its error beside the
+    kernel's). Returns the per-forward sums for each view count."""
+    totals, ok = {}, True
+    for views in CONV2D_VIEWS:
+        classes = kernel_classes(C3.conv3d_fp32_cuda, conv3d_forward_launches(views), views)
+        tot = dict.fromkeys(("kernel_ms", "call_ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        ordered = sorted(classes.items(), key=lambda kv: -math.prod(kv[0][0]) * kv[0][1][0])
+        for i, ((xs, ws, stride, pads), n) in enumerate(ordered):
+            out_shape = C3.output_shape(xs, ws, stride, pads)
+            per = 4 * (math.prod(xs) + math.prod(out_shape))
+            nbuf = max(2, min(64, math.ceil(200e6 / per)))
+            g = torch.Generator(device="cuda").manual_seed(2000 + i)
+            bufs = [(torch.randn(xs, device="cuda", generator=g),
+                     torch.randn(ws, device="cuda", generator=g) / math.sqrt(math.prod(ws[1:])))
+                    for _ in range(nbuf)]
+            x, w = bufs[0]
+            p = C3.plan(xs[-1], ws[0], stride)
+            got = C3.conv3d_fp32_cuda(x, w, None, stride, 1, pads)
+            again = C3.conv3d_fp32_cuda(x, w, None, stride, 1, pads)
+            flat = [q for lo, hi in reversed(pads) for q in (lo, hi)]
+            xc = torch.nn.functional.pad(x.movedim(-1, 1), flat)
+            spec = fp32_passes.ConvSpec.of(3, stride, 0, 1)
+            scale = float(fp32_passes.conv_exact(xc, w, spec, magnitude=True)["forward"].max())
+            exact = fp32_passes.conv_exact(xc, w, spec)["forward"].movedim(1, -1)
+            with fp32_passes.tf32(False):
+                lib_out = torch.nn.functional.conv3d(xc, w, stride=stride)
+            err = float((got.double() - exact).abs().max()) / scale
+            lib_err = float((lib_out.movedim(1, -1).double() - exact).abs().max()) / scale
+            del exact, lib_out
+            bound = conv2d_kernel_bound(math.prod(ws[1:]))
+            same_bits = bool(torch.equal(got, again))
+            held = err <= bound and same_bits
+            ok = ok and held
+            k_ms = device_ms(lambda x_, w_: C3._launch(x_, w_, None, stride, pads, p), bufs, 20)
+            c_ms = device_ms(lambda x_, w_: C3.conv3d_fp32_cuda(x_, w_, None, stride, 1, pads),
+                             bufs, 20)
+            with torch.no_grad():
+                pl_ms = device_ms(lambda x_, w_: C3.conv3d_fp32_torch(x_, w_, None, stride, 1,
+                                                                      pads), bufs, 10)
+            padded = [(torch.nn.functional.pad(b[0].movedim(-1, 1), flat), b[1]) for b in bufs[:2]]
+            with fp32_passes.tf32(False):
+                lib_ms = device_ms(lambda x_, w_: torch.nn.functional.conv3d(
+                    x_, w_, stride=stride), padded, 10)
+            b_ms, b_by = conv3d_bound_ms(xs, ws, out_shape, kind)
+            emit(phase="conv3d", views=views, x=list(xs), w=list(ws), stride=stride,
+                 pads=[list(q) for q in pads], launches_per_forward=n, plan=p,
+                 kernel_ms=k_ms, call_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
+                 kernel_over_bound=k_ms / b_ms, plain_ms=pl_ms, library_ms=lib_ms,
+                 error_over_max_sum_abs=err, library_error=lib_err, error_bound=bound,
+                 same_bits=same_bits, ok=held)
+            for key, v in (("kernel_ms", k_ms), ("call_ms", c_ms), ("plain_ms", pl_ms),
+                           ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                tot[key] += n * v
+            del bufs, padded, got, again, xc
+            torch.cuda.empty_cache()
+        emit(phase="conv3d", what=f"per {views}-view forward", classes=len(classes),
+             launches=sum(classes.values()), **tot)
+        totals[views] = tot
+    if not ok:
+        raise AssertionError("conv3d: a class missed its bound or changed bits between calls")
+    return totals
+
+
 def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     """The flagship forward under act_quant="int8mxu" (deterministic cuDNN): every qin conv
     on the int8 kernel, counted from 0 over this forward by shape (INT8_MAIN_SHAPES) and by
@@ -2993,11 +3120,13 @@ def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     torch.cuda.reset_peak_memory_stats()
     I8.reset_launch_counts()
     S.reset_launch_counts()
+    C3.reset_launch_counts()
     t0 = time.perf_counter()
     out = multi_view_forward(model, images, cams, mxu)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = I8.conv3d_int8_cuda.launches
+    conv3d_launches = C3.conv3d_fp32_cuda.launches
     by_shape = dict(I8.conv3d_int8_cuda.shape_launches)
     by_path = dict(I8.conv3d_int8_cuda.path_launches)
     softargmin_by_shape = dict(S.softargmin_cuda.shape_launches)
@@ -3018,8 +3147,11 @@ def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     expected_paths = int8_expected_paths()
     ok = (not bad and not nonfinite and by_shape == INT8_MAIN_SHAPES
           and launches == INT8_EXPECTED_LAUNCHES and softargmin_by_shape == MAIN_SHAPES
-          and by_path == expected_paths and by_path["generic"] == 0)
+          and by_path == expected_paths and by_path["generic"] == 0
+          and conv3d_launches == conv3d_int8mxu_launches(cfg.view_num))
     emit(phase="forward", act_quant="int8mxu", int8_launches=launches,
+         conv3d_launches=conv3d_launches,
+         conv3d_expected_launches=conv3d_int8mxu_launches(cfg.view_num),
          expected_int8_launches=INT8_EXPECTED_LAUNCHES,
          int8_launches_by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()},
          int8_launches_by_path=by_path, expected_int8_launches_by_path=expected_paths,
@@ -3034,6 +3166,9 @@ def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
         raise AssertionError(f"int8 conv launches by path {by_path}, expected {expected_paths}")
     if softargmin_by_shape != MAIN_SHAPES:
         raise AssertionError(f"soft-argmin launches under int8mxu {softargmin_by_shape}")
+    if conv3d_launches != conv3d_int8mxu_launches(cfg.view_num):
+        raise AssertionError(f"fp32 conv3d launches under int8mxu {conv3d_launches}, expected "
+                             f"{conv3d_int8mxu_launches(cfg.view_num)}")
     return launches, by_path
 
 
@@ -3375,7 +3510,8 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
-                    choices=["kernels", "int8", "conv2d", "native", "fusion", "eval", "train",
+                    choices=["kernels", "int8", "conv2d", "conv3d", "native", "fusion", "eval",
+                             "train",
                              "parallel", "quant", "depth", "precision", "helpers"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
@@ -3394,28 +3530,32 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, bandwidth_assumed=HBM_BYTES_PER_S[kind])
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one nvcc per source, together
-        for built in [pool.submit(m.build, True) for m in (S, I8, C2)]:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:   # one nvcc per source, together
+        for built in [pool.submit(m.build, True) for m in (S, I8, C2, C3)]:
             built.result()
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
          ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln],
          int8_library=os.path.relpath(I8.LIBRARY, ROOT),
          int8_ptxas=[ln for ln in I8.build_log.splitlines() if "ptxas" in ln],
          conv2d_library=os.path.relpath(C2.LIBRARY, ROOT),
-         conv2d_ptxas=[ln for ln in C2.build_log.splitlines() if "ptxas" in ln])
+         conv2d_ptxas=[ln for ln in C2.build_log.splitlines() if "ptxas" in ln],
+         conv3d_library=os.path.relpath(C3.LIBRARY, ROOT),
+         conv3d_ptxas=[ln for ln in C3.build_log.splitlines() if "ptxas" in ln])
 
     def kernels():
         phase_kernel(), phase_kernel_backward(), phase_kernel_split(), phase_kernel_int8()
         phase_timing_kernel(kind), phase_timing_backward(kind), phase_timing_split(kind)
         phase_timing_int8(kind)
         phase_conv2d(kind)
+        phase_conv3d(kind)
         if args.baseline:
             phase_kernel_turns(load_baseline(args.baseline), args.baseline)
 
     if args.only:
         for phase in args.only:
             {"kernels": kernels, "int8": lambda: phase_int8_only(kind, args.baseline),
-             "conv2d": lambda: phase_conv2d(kind), "native": phase_native,
+             "conv2d": lambda: phase_conv2d(kind), "conv3d": lambda: phase_conv3d(kind),
+             "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
              "quant": phase_quant, "helpers": phase_helpers, "precision": phase_precision,
@@ -3440,6 +3580,7 @@ def main() -> int:
     split_totals, split_bound_by = phase_timing_split(kind)
     int8_totals, int8_bound_by = phase_timing_int8(kind)
     conv2d_totals = phase_conv2d(kind)
+    conv3d_totals = phase_conv3d(kind)
     phase_profile(model, images, cams, cfg)
     phase_profile(model, images, cams, cfg.replace(act_quant="int8mxu"))
     phase_pair_batch(model, images, cams, cfg)
@@ -3526,6 +3667,14 @@ def main() -> int:
         "launches_per_forward": {v: conv2d_forward_launches(v) for v in CONV2D_VIEWS},
         "per_forward": conv2d_totals,
         "library": "one cuDNN conv2d, TF32 off, default algorithms, on pre-padded operands",
+    }, {
+        "name": "conv3d_fp32", "kernel": "conv3d_fp32_direct_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/conv3d_fp32.cu",
+        "replaces": "none: cuDNN under the port's fp32 'highest' 3D convs (the JAX package "
+                    "leaves them to XLA, atvsnet_tpu/nn/layers.py)",
+        "launches_per_forward": {v: conv3d_forward_launches(v) for v in CONV2D_VIEWS},
+        "per_forward": conv3d_totals,
+        "library": "one cuDNN conv3d, TF32 off, default algorithms, on pre-padded operands",
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0
