@@ -20,7 +20,8 @@ Entry points:
                                   depth maps, images and cams (or raw P matrices) in,
                                   points and colours (and normals) out; dense or sparse
   models.atvsnet.multi_view_forward, models.tvsnet.two_view_forward
-                                  the bare forwards on prepared arrays
+                                  the bare forwards on prepared arrays (every N-view entry
+                                  point runs models.atvsnet.forward_stages)
   cli.train, models.train         python -m atvsnet_torch.cli.train: training on rendered
                                   scenes, MVS-Synth or ETH3D; the losses, the optimizer,
                                   train_step; utils.ckpt: train-state checkpoints

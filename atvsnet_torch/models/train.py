@@ -45,9 +45,9 @@ import torch.distributed as dist
 
 from atvsnet_torch.config import PipelineConfig, TrainConfig
 from atvsnet_torch.geometry.warp import transform_depth, warp_by_depth
+from atvsnet_torch.models.atvsnet import forward_stages
 from atvsnet_torch.models.tvsnet import ATVSNet
 from atvsnet_torch.parallel.mesh import Mesh
-from atvsnet_torch.parallel.pipeline import forward_rows
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -193,7 +193,8 @@ def training_loss(model: ATVSNet, batch: dict, cfg: PipelineConfig, tcfg: TrainC
     depth_gt (B, h, w, 1) in sweep space, optionally depth_views_gt (B, N-1, h, w, 1)
     (multi-depth samples: each view's own-frame ground truth). Arrays or tensors; they
     go to the model's device. The loss reads native-resolution maps only, so the
-    forward (parallel.pipeline's) runs without the upsampled outputs.
+    forward (models.atvsnet.forward_stages with ref_depth=False, as parallel.pipeline's)
+    runs without the upsampled outputs.
 
     With a mesh every rank passes the same whole batch and runs its rows and its pairs;
     the loss is then this rank's share of the batch's loss (see the module docstring),
@@ -202,8 +203,9 @@ def training_loss(model: ATVSNet, batch: dict, cfg: PipelineConfig, tcfg: TrainC
     group = None if mesh is None else mesh.data_group
     if mesh is not None:
         batch = {k: mesh.data_rows(v) for k, v in batch.items()}
-    out = forward_rows(model, batch["images"], batch["cams"], cfg, mesh,
-                       out_prob_map=need_conf, upsample=False)
+    layout = {} if mesh is None else mesh.forward_layout(cfg.view_num - 1, cfg.max_d)
+    out = forward_stages(model, batch["images"], batch["cams"], cfg, ref_depth=False,
+                         out_prob_map=need_conf, upsample=False, **layout)
     device = out["depth"].device
 
     def tensor(key):

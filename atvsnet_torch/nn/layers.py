@@ -52,10 +52,11 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
-from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32, padded_channels_first
+from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32
 from atvsnet_torch.ops.conv3d_fp32 import conv3d_fp32
 from atvsnet_torch.ops.conv3d_fp32 import takes as conv3d_fp32_takes
-from atvsnet_torch.ops.fp32_passes import pass_conv, pass_conv_transpose, pass_matmul
+from atvsnet_torch.ops.fp32_passes import (pass_conv, pass_conv_transpose, pass_matmul,
+                                           padded_channels_first)
 from atvsnet_torch.ops.int8_conv import conv3d_int8
 from atvsnet_torch.utils.profiling import TRACER
 

@@ -24,27 +24,29 @@ build/atvsnet_torch/libatvsnet_torch_conv3d_fp32.so and bound with ctypes.
   * `conv3d_fp32_cuda` launches on CUDA tensors only, counts its launches (in total, per
     path in `path_launches`, and per (x shape, w shape, stride, pads) in `shape_launches`)
     and raises on anything it does not take;
-  * `Conv3dFp32Function` runs it under autograd; its backward is the "highest" backward of
-    ops.fp32_passes.pass_conv (aten's, TF32 off) on the same padded operands, so training's
-    gradients are what they were;
-  * `conv3d_fp32_torch` is the plain version, the call the route made before the kernel
-    (ops.fp32_passes.pass_conv on the padded channel-first view);
-  * `conv3d_fp32` picks by device: the Function for CUDA tensors, the plain version for CPU
-    tensors. There is no fallback from one to the other.
+  * the rest is ops.fp32_passes' channel-last conv wrapper, shared with ops.conv2d_fp32:
+    `Conv3dFp32Function` (its autograd Function; the backward is the "highest" backward of
+    pass_conv, aten's with TF32 off, on the same padded operands, so training's gradients
+    are what they were), `conv3d_fp32_torch` (the plain version, the call the route made
+    before the kernel) and `conv3d_fp32`, which picks by device: the Function for CUDA
+    tensors, the plain version for CPU tensors. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
-from torch.autograd.function import once_differentiable
 
-from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32_torch, highest_backward
-from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, nvcc_build
+from atvsnet_torch.ops.fp32_passes import (
+    ChannelLastConvFunction,
+    channel_last_conv,
+    channel_last_conv_torch,
+    check_channel_last_cuda,
+    conv_output_shape,
+)
+from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, CudaLibrary, count_launch, launch_counts
 
 SOURCE = CSRC / "conv3d_fp32.cu"
 LIBRARY = BUILD_DIR / "libatvsnet_torch_conv3d_fp32.so"
@@ -52,31 +54,14 @@ PATHS = ("vector", "scalar")   # the C side's path index
 BLOCK = (16, 8)                # output columns (w) x rows (h) of a block, one per thread
 KERNEL = (3, 3, 3)             # the only kernel size it takes, at rate 1 and stride 1 or 2
 
-_lib = None
-_lib_lock = threading.Lock()
-build_log = ""
+LIB = CudaLibrary(SOURCE, LIBRARY, {
+    "atvsnet_conv3d_fp32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p],
+                            ctypes.c_int)})
+build = LIB.build
+__getattr__ = LIB.module_getattr(__name__)   # build_log
 
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/conv3d_fp32.cu into LIBRARY unless an up-to-date build exists."""
-    global build_log
-    library, log = nvcc_build(SOURCE, LIBRARY, force)
-    if log is not None:
-        build_log = log
-    return library
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            # pointers and the stream as c_void_p: ctypes would otherwise cut them to 32 bits
-            lib.atvsnet_conv3d_fp32.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 17
-                                                + [ctypes.c_void_p])
-            lib.atvsnet_conv3d_fp32.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+conv3d_fp32_torch = channel_last_conv_torch
+Conv3dFp32Function = ChannelLastConvFunction
 
 
 def takes(w_shape: Sequence[int], stride: int, rate: int) -> bool:
@@ -88,9 +73,7 @@ def output_shape(x_shape: Sequence[int], w_shape: Sequence[int], stride: int,
                  pads) -> tuple[int, int, int, int, int]:
     """(B, Do, Ho, Wo, Co) of a conv of a (B, D, H, W, Ci) input with a (Co, Ci, kd, kh, kw)
     kernel at rate 1."""
-    spatial = tuple((n + lo + hi - k) // stride + 1
-                    for n, (lo, hi), k in zip(x_shape[1:4], pads, w_shape[2:]))
-    return (x_shape[0],) + spatial + (w_shape[0],)
+    return conv_output_shape(x_shape, w_shape, stride, 1, pads)
 
 
 def plan(ci: int, co: int, stride: int, aligned: bool = True) -> dict:
@@ -112,37 +95,6 @@ def plan(ci: int, co: int, stride: int, aligned: bool = True) -> dict:
             "planes": planes, "stages": stages}
 
 
-# The plain version on any device, the route's call before the kernel: pass_conv in
-# "highest" (aten's conv, TF32 off) on the padded channel-first view, which the 2D route's
-# plain version is for any number of spatial axes.
-conv3d_fp32_torch = conv2d_fp32_torch
-
-
-def _check_cuda(name: str, x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int,
-                pads) -> None:
-    tensors = [x, w] + ([] if b is None else [b])
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
-        raise ValueError(f"{name} needs CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{name} takes float32 tensors, got {[t.dtype for t in tensors]}")
-    if x.dim() != 5 or w.dim() != 5 or w.shape[1] != x.shape[-1]:
-        raise ValueError(f"{name}: x must be (B, D, H, W, Ci) and w (Co, Ci, 3, 3, 3), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if not takes(w.shape, stride, rate):
-        raise ValueError(f"{name} takes a 3x3x3 kernel at rate 1 and stride 1 or 2, got "
-                         f"{tuple(w.shape)}, stride {stride}, rate {rate}")
-    if b is not None and tuple(b.shape) != (w.shape[0],):
-        raise ValueError(f"{name}: bias must be ({w.shape[0]},), got {tuple(b.shape)}")
-    if len(pads) != 3 or any(p < 0 for pr in pads for p in pr):
-        raise ValueError(f"{name}: pads {pads} out of range")
-    shape = output_shape(x.shape, w.shape, stride, pads)
-    if min(shape) < 1:
-        raise ValueError(f"{name}: no output for {tuple(x.shape)} with {tuple(w.shape)}")
-    if x.numel() >= 2**31 or torch.Size(shape).numel() >= 2**31:
-        raise ValueError(f"{name}: tensor too large, {tuple(x.shape)} -> {shape}")
-
-
 def _launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
             pads, p: dict) -> torch.Tensor:
     """One launch with plan p on contiguous operands; returns the output."""
@@ -150,7 +102,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stri
     shape = output_shape(x.shape, w.shape, stride, pads)
     out = torch.empty(shape, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        err = _library().atvsnet_conv3d_fp32(
+        err = LIB().atvsnet_conv3d_fp32(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), B, D, H, W, ci, *shape[1:], stride, pads[0][0], pads[1][0],
             pads[2][0], PATHS.index(p["path"]), p["tn"], p["planes"], p["stages"],
@@ -166,48 +118,18 @@ def conv3d_fp32_cuda(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
                      stride: int, rate: int, pads) -> torch.Tensor:
     """Launch the CUDA kernel: x (B, D, H, W, Ci), w (Co, Ci, 3, 3, 3) and b (Co,) or None,
     float32 CUDA tensors on one device -> (B, Do, Ho, Wo, Co), channel-last."""
-    _check_cuda("conv3d_fp32_cuda", x, w, b, stride, rate, pads)
+    check_channel_last_cuda("conv3d_fp32_cuda", x, w, b, stride, rate, pads, takes)
     x = x.contiguous()
     p = plan(x.shape[-1], w.shape[0], stride, aligned=x.data_ptr() % 16 == 0)
     out = _launch(x, w.contiguous(), None if b is None else b.contiguous(), stride, pads, p)
-    conv3d_fp32_cuda.launches += 1
-    conv3d_fp32_cuda.path_launches[p["path"]] += 1
-    key = (tuple(x.shape), tuple(w.shape), stride, tuple(pads))
-    conv3d_fp32_cuda.shape_launches[key] = conv3d_fp32_cuda.shape_launches.get(key, 0) + 1
+    count_launch(conv3d_fp32_cuda, p["path"], (tuple(x.shape), tuple(w.shape), stride, tuple(pads)))
     return out
-
-
-class Conv3dFp32Function(torch.autograd.Function):
-    """The kernel's forward; the backward is pass_conv's "highest" backward (aten's
-    convolution_backward with TF32 off) on the same padded channel-first operands."""
-
-    @staticmethod
-    def forward(ctx, x, w, b, stride, rate, pads):
-        ctx.save_for_backward(x, w)
-        ctx.stride, ctx.rate, ctx.pads = stride, rate, pads
-        ctx.bias_sizes = None if b is None else list(b.shape)
-        return conv3d_fp32_cuda(x, w, b, stride, rate, pads)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        return highest_backward(ctx, g) + (None, None, None)
 
 
 def conv3d_fp32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride: int,
                 rate: int, pads) -> torch.Tensor:
     """The kernel (under autograd) for CUDA tensors, the plain version for CPU tensors."""
-    pads = tuple(tuple(p) for p in pads)
-    if x.device.type == "cuda":
-        return Conv3dFp32Function.apply(x, w, b, stride, rate, pads)
-    return conv3d_fp32_torch(x, w, b, stride, rate, pads)
+    return channel_last_conv(x, w, b, stride, rate, pads, conv3d_fp32_cuda)
 
 
-def reset_launch_counts() -> None:
-    """Set the kernel's launch counts (total, per path and per shape) to 0."""
-    conv3d_fp32_cuda.launches = 0
-    conv3d_fp32_cuda.path_launches = dict.fromkeys(PATHS, 0)
-    conv3d_fp32_cuda.shape_launches = {}
-
-
-reset_launch_counts()
+reset_launch_counts = launch_counts(PATHS, conv3d_fp32_cuda)

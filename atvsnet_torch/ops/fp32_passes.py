@@ -41,7 +41,10 @@ through fp32 convs and matmuls, which is the mode's arithmetic itself.
     fp32 pieces (three float64 calls for "high"), the plain versions that tests and
     chip_smoke.py hold the leaves to; `conv_exact`, `matmul_exact`: the float64 product of
     the unrounded operands or, with magnitude=True, of their absolute values, whose largest
-    value (max sum |a||b|) is the scale of a leaf's error.
+    value (max sum |a||b|) is the scale of a leaf's error;
+  * `channel_last_conv` and its parts: the wrapper of the hand-written "highest" conv
+    kernels (ops.conv2d_fp32, ops.conv3d_fp32) for any number of spatial axes, where a
+    kernel module gives only its launcher.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from atvsnet_torch.config import FP32_PRECISION_MODES
@@ -297,3 +301,115 @@ def matmul_plain(a, b, mode, g=None) -> dict:
 def matmul_exact(a, b, g=None, magnitude=False) -> dict:
     f = torch.abs if magnitude else (lambda t: t)
     return matmul_plain(f(a), f(b), "highest", None if g is None else f(g))
+
+
+# ---- the hand-written channel-last convs in "highest" ----
+#
+# A kernel module (ops.conv2d_fp32, ops.conv3d_fp32) gives its launcher,
+# launch(x, w, b, stride, rate, pads) on float32 CUDA tensors: x (B, *spatial, Ci)
+# channel-last, w (Co, Ci, *kernel), b (Co,) or None, explicit (beg, end) `pads` per spatial
+# axis with zeros outside x, the output (B, *spatial_out, Co) contiguous. The rest is here.
+
+def conv_output_shape(x_shape: Sequence[int], w_shape: Sequence[int], stride: int, rate: int,
+                      pads) -> tuple:
+    """(B, *spatial_out, Co) of a channel-last conv of a (B, *spatial, Ci) input with a
+    (Co, Ci, *kernel) weight."""
+    spatial = tuple((n + lo + hi - rate * (k - 1) - 1) // stride + 1
+                    for n, (lo, hi), k in zip(x_shape[1:-1], pads, w_shape[2:]))
+    return (x_shape[0],) + spatial + (w_shape[0],)
+
+
+def padded_channels_first(x: torch.Tensor, pads):
+    """The channel-first view of a channel-last x and aten's symmetric padding for explicit
+    (beg, end) `pads` per spatial axis: pads that are equal per axis stay aten's argument,
+    unequal ones (TF-SAME's) are applied by F.pad first, and the padding is then 0."""
+    xc = x.movedim(-1, 1)
+    if all(lo == hi for lo, hi in pads):
+        return xc, tuple(lo for lo, _ in pads)
+    return F.pad(xc, [p for lo, hi in reversed(pads) for p in (lo, hi)]), 0
+
+
+def channel_last_conv_torch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                            stride: int, rate: int, pads) -> torch.Tensor:
+    """Plain version on any device: pass_conv in "highest" (aten's conv, TF32 off) on the
+    padded channel-first view, the route's call before the kernels."""
+    xc, padding = padded_channels_first(x, pads)
+    return pass_conv(xc, w, "highest", stride, padding, rate, 1, b).movedim(1, -1)
+
+
+def check_channel_last_cuda(name: str, x: torch.Tensor, w: torch.Tensor, b, stride: int,
+                            rate: int, pads, takes: Callable) -> None:
+    """Raise unless a kernel's launcher takes these operands: float32 CUDA tensors on one
+    device, x (B, *spatial, Ci) and w (Co, Ci, *kernel) of one rank, a kernel shape, stride
+    and rate that `takes(w_shape, stride, rate)` accepts, b (Co,) or None, (beg, end) pads
+    >= 0 per spatial axis, an output, and sizes that int32 indexes."""
+    tensors = [x, w] + ([] if b is None else [b])
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError(f"{name} needs CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != _F32 for t in tensors):
+        raise ValueError(f"{name} takes float32 tensors, got {[t.dtype for t in tensors]}")
+    if x.dim() < 3 or w.dim() != x.dim() or w.shape[1] != x.shape[-1]:
+        raise ValueError(f"{name}: x must be (B, *spatial, Ci) and w (Co, Ci, *kernel), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not takes(w.shape, stride, rate):
+        raise ValueError(f"{name} does not take a {tuple(w.shape[2:])} kernel at stride "
+                         f"{stride}, rate {rate}")
+    if b is not None and tuple(b.shape) != (w.shape[0],):
+        raise ValueError(f"{name}: bias must be ({w.shape[0]},), got {tuple(b.shape)}")
+    if len(pads) != x.dim() - 2 or any(p < 0 for pr in pads for p in pr):
+        raise ValueError(f"{name}: pads {pads} out of range")
+    shape = conv_output_shape(x.shape, w.shape, stride, rate, pads)
+    if min(shape) < 1:
+        raise ValueError(f"{name}: no output for {tuple(x.shape)} with {tuple(w.shape)}")
+    if x.numel() >= 2**31 or torch.Size(shape).numel() >= 2**31:
+        raise ValueError(f"{name}: tensor too large, {tuple(x.shape)} -> {shape}")
+
+
+def highest_backward(ctx, g: torch.Tensor) -> tuple:
+    """(grad x, grad w, grad b) of a channel-last conv whose forward saved (x, w) and set
+    ctx.stride, .rate, .pads and .bias_sizes: pass_conv's "highest" backward (aten's
+    convolution_backward, TF32 off) on the padded channel-first operands, the pads then
+    dropped from grad x as F.pad's backward drops them. Any number of spatial axes."""
+    x, w = ctx.saved_tensors
+    need_x, need_w, need_b = ctx.needs_input_grad[:3]
+    xc, padding = padded_channels_first(x, ctx.pads)
+    spec = ConvSpec.of(x.ndim - 2, ctx.stride, padding, ctx.rate)
+    with tf32(False):
+        gx, gw, gb = spec.backward(xc, g.movedim(-1, 1), w, [need_x, need_w, need_b],
+                                   ctx.bias_sizes)
+    if gx is not None:
+        if any(lo != hi for lo, hi in ctx.pads):
+            gx = gx[(slice(None), slice(None)) + tuple(
+                slice(lo, lo + n) for (lo, _), n in zip(ctx.pads, x.shape[1:-1]))]
+        gx = gx.movedim(1, -1)
+    return gx, gw, gb
+
+
+class ChannelLastConvFunction(torch.autograd.Function):
+    """A kernel's forward, `launch(x, w, b, stride, rate, pads)`; the backward is pass_conv's
+    "highest" backward (aten's convolution_backward with TF32 off) on the same padded
+    channel-first operands, so training's gradients are what they were before the
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, rate, pads, launch):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.rate, ctx.pads = stride, rate, pads
+        ctx.bias_sizes = None if b is None else list(b.shape)
+        return launch(x, w, b, stride, rate, pads)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return highest_backward(ctx, g) + (None,) * 4
+
+
+def channel_last_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride: int,
+                      rate: int, pads, launch: Callable) -> torch.Tensor:
+    """The kernel's launcher `launch` (under autograd) for CUDA tensors, the plain version for
+    CPU tensors. There is no fallback from one to the other."""
+    pads = tuple(tuple(p) for p in pads)
+    if x.device.type == "cuda":
+        return ChannelLastConvFunction.apply(x, w, b, stride, rate, pads, launch)
+    return channel_last_conv_torch(x, w, b, stride, rate, pads)

@@ -37,14 +37,12 @@ bound with ctypes. It has three paths (the source's note says why each exists):
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, nvcc_build
+from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, CudaLibrary, count_launch, launch_counts
 
 SOURCE = CSRC / "int8_conv.cu"
 LIBRARY = BUILD_DIR / "libatvsnet_torch_int8_conv.so"
@@ -70,37 +68,16 @@ ITEM_START = 2                     # an item's start, in output planes' time (ch
 # ring_cluster where the ring plan has fewer output plane-tiles than this per SM: see plan()
 CLUSTER_PLANE_TILES_PER_SM = 1
 
-_lib = None
-_lib_lock = threading.Lock()
 _device_limits: dict = {}
-build_log = ""
 
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/int8_conv.cu into LIBRARY unless an up-to-date build exists."""
-    global build_log
-    library, log = nvcc_build(SOURCE, LIBRARY, force)
-    if log is not None:
-        build_log = log
-    return library
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            # pointers and the stream as c_void_p: ctypes would otherwise cut them to 32 bits
-            lib.atvsnet_conv3d_int8.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
-                                                + [ctypes.c_void_p] * 2)
-            lib.atvsnet_conv3d_int8_check.argtypes = [ctypes.c_int] * 14 + [ctypes.c_void_p] * 2
-            lib.atvsnet_conv3d_int8_noop.argtypes = [ctypes.c_int] * 14 + [ctypes.c_void_p] * 2
-            lib.atvsnet_conv3d_int8_device.argtypes = [ctypes.c_void_p]
-            for fn in (lib.atvsnet_conv3d_int8, lib.atvsnet_conv3d_int8_check,
-                       lib.atvsnet_conv3d_int8_noop, lib.atvsnet_conv3d_int8_device):
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+_PLAN_ARGS = [ctypes.c_int] * 14 + [ctypes.c_void_p] * 2   # shapes, out kind; plan, result/stream
+LIB = CudaLibrary(SOURCE, LIBRARY, {
+    "atvsnet_conv3d_int8": ([ctypes.c_void_p] * 4 + _PLAN_ARGS, ctypes.c_int),
+    "atvsnet_conv3d_int8_check": (_PLAN_ARGS, ctypes.c_int),
+    "atvsnet_conv3d_int8_noop": (_PLAN_ARGS, ctypes.c_int),
+    "atvsnet_conv3d_int8_device": ([ctypes.c_void_p], ctypes.c_int)})
+build = LIB.build
+__getattr__ = LIB.module_getattr(__name__)   # build_log
 
 
 def output_shape(x_shape: Sequence[int], co: int, stride: int, pads) -> tuple[int, ...]:
@@ -320,7 +297,7 @@ def device_limits(device=None) -> tuple[int, int]:
     if index not in _device_limits:
         res = (ctypes.c_int * 2)()
         with torch.cuda.device(index):
-            err = _library().atvsnet_conv3d_int8_device(res)
+            err = LIB().atvsnet_conv3d_int8_device(res)
         if err != 0:
             raise RuntimeError(f"conv3d_int8: device query failed: cudaError {err}")
         _device_limits[index] = (res[0], res[1])
@@ -337,7 +314,7 @@ def launch_plan(x_shape, co: int, stride: int, pads, out_dtype=None, aligned: bo
     p = plan(x_shape, co, stride, pads, sms=sms, smem_optin=smem, aligned=aligned, path=path)
     B, Do, Ho, Wo, _ = output_shape(x_shape, co, stride, pads)
     res = (ctypes.c_int * 2)()
-    err = _library().atvsnet_conv3d_int8_check(B, *x_shape[1:], Do, Ho, Wo, co, stride,
+    err = LIB().atvsnet_conv3d_int8_check(B, *x_shape[1:], Do, Ho, Wo, co, stride,
                                                *(lo for lo, _ in pads), OUT_KINDS[out_dtype],
                                                _plan_array(p), res)
     if err != 0:
@@ -419,7 +396,7 @@ def _launch(xq, wq, stride, pads, scale, out_dtype, p):
     out = torch.empty(shape, device=xq.device,
                       dtype=torch.int32 if out_dtype is None else out_dtype)
     with torch.cuda.device(xq.device):
-        err = _library().atvsnet_conv3d_int8(
+        err = LIB().atvsnet_conv3d_int8(
             xq.data_ptr(), wk.data_ptr(), None if scale is None else scale.data_ptr(),
             out.data_ptr(), B, D, H, W, Ci, shape[1], shape[2], shape[3], co, stride,
             pads[0][0], pads[1][0], pads[2][0], OUT_KINDS[out_dtype], _plan_array(p),
@@ -427,10 +404,7 @@ def _launch(xq, wq, stride, pads, scale, out_dtype, p):
     if err != 0:
         raise RuntimeError(f"conv3d_int8 kernel launch failed for {tuple(xq.shape)} -> {co} "
                            f"channels at stride {stride} on the {p['path']} path: cudaError {err}")
-    conv3d_int8_cuda.launches += 1
-    conv3d_int8_cuda.path_launches[p["path"]] += 1
-    key = (B, D, H, W, Ci, co, stride)
-    conv3d_int8_cuda.shape_launches[key] = conv3d_int8_cuda.shape_launches.get(key, 0) + 1
+    count_launch(conv3d_int8_cuda, p["path"], (B, D, H, W, Ci, co, stride))
     return out
 
 
@@ -451,7 +425,7 @@ def empty_launch(xq: torch.Tensor, co: int, stride: int, pads, out_dtype, p: dic
     no byte and counts as no launch."""
     B, Do, Ho, Wo, _ = output_shape(xq.shape, co, stride, pads)
     with torch.cuda.device(xq.device):
-        err = _library().atvsnet_conv3d_int8_noop(B, *xq.shape[1:], Do, Ho, Wo, co, stride,
+        err = LIB().atvsnet_conv3d_int8_noop(B, *xq.shape[1:], Do, Ho, Wo, co, stride,
                                                   *(lo for lo, _ in pads), OUT_KINDS[out_dtype],
                                                   _plan_array(p),
                                                   torch.cuda.current_stream().cuda_stream)
@@ -467,11 +441,4 @@ def conv3d_int8(xq: torch.Tensor, wq: torch.Tensor, stride: int, pads,
     return conv3d_int8_torch(xq, wq, stride, pads, scale, out_dtype)
 
 
-def reset_launch_counts() -> None:
-    """Set the kernel's launch counts (total, per path and per shape) to 0."""
-    conv3d_int8_cuda.launches = 0
-    conv3d_int8_cuda.path_launches = dict.fromkeys(PATHS, 0)
-    conv3d_int8_cuda.shape_launches = {}
-
-
-reset_launch_counts()
+reset_launch_counts = launch_counts(PATHS, conv3d_int8_cuda)

@@ -1,16 +1,19 @@
-"""Building the port's CUDA sources: nvcc compiles one .cu file with a plain C interface
-into a shared library under build/atvsnet_torch/, which the wrappers load with ctypes.
-A build happens at first use (or when the source is newer than the library); the
-libraries are never committed."""
+"""Building and loading the port's CUDA sources: nvcc compiles one .cu file with a plain C
+interface into a shared library under build/atvsnet_torch/, which `CudaLibrary` loads with
+ctypes. A build happens at first use (or when the source is newer than the library); the
+libraries are never committed. `launch_counts` and `count_launch` keep each launcher's
+counts of its launches, which tests, chip_smoke.py and the benchmark read."""
 
 from __future__ import annotations
 
+import ctypes
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "atvsnet_torch"
@@ -41,3 +44,67 @@ def nvcc_build(source: Path, library: Path, force: bool = False) -> tuple[Path, 
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, library)  # atomic: a concurrent loader sees the old or the new file
     return library, log
+
+
+class CudaLibrary:
+    """One .cu source with a plain C interface, built by nvcc into `library` and loaded
+    with ctypes on first use (under a lock, so concurrent first callers load it once).
+
+    signatures: {entry point: (argtypes, restype)}; every pointer and the stream are
+    c_void_p, which ctypes would otherwise cut to 32 bits. Calling the object returns the
+    loaded library; `build(force)` compiles without loading, and `build_log` keeps nvcc's
+    output of the last build that ran."""
+
+    def __init__(self, source: Path, library: Path, signatures: dict):
+        self.source, self.library, self.signatures = source, library, signatures
+        self.build_log = ""
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def build(self, force: bool = False) -> Path:
+        """Compile the source into the library unless an up-to-date build exists."""
+        library, log = nvcc_build(self.source, self.library, force)
+        if log is not None:
+            self.build_log = log
+        return library
+
+    def __call__(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                for name, (argtypes, restype) in self.signatures.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes, fn.restype = argtypes, restype
+                self._lib = lib
+        return self._lib
+
+    def module_getattr(self, module: str) -> Callable:
+        """A kernel module's __getattr__: its `build_log` reads this library's."""
+        def __getattr__(name: str):
+            if name == "build_log":
+                return self.build_log
+            raise AttributeError(f"module {module!r} has no attribute {name!r}")
+
+        return __getattr__
+
+
+def count_launch(launcher, path: str, shape) -> None:
+    """Count one launch of `launcher` on `path` for the key `shape`."""
+    launcher.launches += 1
+    launcher.path_launches[path] += 1
+    launcher.shape_launches[shape] = launcher.shape_launches.get(shape, 0) + 1
+
+
+def launch_counts(paths: Sequence[str], *launchers) -> Callable[[], None]:
+    """Give each launcher its counts, `launches` (in total), `path_launches` (per path of
+    `paths`) and `shape_launches` (per key), all 0, and return the module's
+    reset_launch_counts, which sets them to 0 again."""
+    def reset_launch_counts() -> None:
+        """Set the kernel's launch counts (total, per path and per shape) to 0."""
+        for fn in launchers:
+            fn.launches = 0
+            fn.path_launches = dict.fromkeys(paths, 0)
+            fn.shape_launches = {}
+
+    reset_launch_counts()
+    return reset_launch_counts

@@ -48,56 +48,34 @@ tiles x chunks of D, the chunks of a tile one thread-block cluster) `partial_gri
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 
 import torch
 import torch.distributed as dist
 
-from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc_build  # noqa: F401
+from atvsnet_torch.ops.nvcc import BUILD_DIR, CSRC, CudaLibrary, count_launch, launch_counts
 
 SOURCE = CSRC / "softargmin.cu"
 LIBRARY = BUILD_DIR / "libatvsnet_torch_kernels.so"
 PATHS = ("aligned", "scalar")
 ALIGNMENT = 16  # bytes: the aligned path's loads and stores
 
-_lib = None
-_lib_lock = threading.Lock()
-build_log = ""
+
+def _signatures() -> dict:
+    ptrs, ints, stream = [ctypes.c_void_p], [ctypes.c_int], [ctypes.c_void_p]
+    sig = {}
+    for dtype in ("f32", "bf16"):
+        sig[f"atvsnet_softargmin_{dtype}"] = (ptrs * 5 + ints * 4 + stream, ctypes.c_int)
+        sig[f"atvsnet_softargmin_backward_{dtype}"] = (ptrs * 7 + ints * 5 + stream, ctypes.c_int)
+        sig[f"atvsnet_softargmin_partial_{dtype}"] = (ptrs * 4 + ints * 5 + stream, ctypes.c_int)
+    for name in ("atvsnet_softargmin_grad_grid", "atvsnet_softargmin_partial_grid"):
+        sig[name] = (ints * 4 + ptrs, ctypes.c_int)
+    sig["atvsnet_softargmin_noop"] = (ints * 5 + stream, ctypes.c_int)
+    return sig
 
 
-def build(force: bool = False) -> Path:
-    """Compile csrc/softargmin.cu into LIBRARY unless an up-to-date build exists."""
-    global build_log
-    library, log = nvcc_build(SOURCE, LIBRARY, force)
-    if log is not None:
-        build_log = log
-    return library
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            # pointers and the stream as c_void_p: ctypes would otherwise cut them to 32 bits
-            for fn in (lib.atvsnet_softargmin_f32, lib.atvsnet_softargmin_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            for fn in (lib.atvsnet_softargmin_backward_f32, lib.atvsnet_softargmin_backward_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            for fn in (lib.atvsnet_softargmin_partial_f32, lib.atvsnet_softargmin_partial_bf16):
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            for fn in (lib.atvsnet_softargmin_grad_grid, lib.atvsnet_softargmin_partial_grid):
-                fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            lib.atvsnet_softargmin_noop.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            for fn in (lib.atvsnet_softargmin_grad_grid, lib.atvsnet_softargmin_partial_grid,
-                       lib.atvsnet_softargmin_noop):
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+LIB = CudaLibrary(SOURCE, LIBRARY, _signatures())
+build = LIB.build
+__getattr__ = LIB.module_getattr(__name__)   # build_log
 
 
 def sweep(depth_num: int, depth_start: torch.Tensor, depth_interval: torch.Tensor,
@@ -213,12 +191,6 @@ def _check_launch_inputs(name: str, cost_volume: torch.Tensor, depth_start: torc
         raise ValueError(f"unsupported cost volume shape {tuple(cost_volume.shape)}")
 
 
-def _count(fn, path: str, shape) -> None:
-    fn.launches += 1
-    fn.path_launches[path] += 1
-    fn.shape_launches[shape] = fn.shape_launches.get(shape, 0) + 1
-
-
 def _dtype_suffix(dtype: torch.dtype) -> str:
     return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
 
@@ -230,7 +202,7 @@ def softargmin_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
     stats), the kernel also writing the (2, B, h, w) fp32 statistics of softargmin_torch."""
     _check_launch_inputs("softargmin_cuda", cost_volume, depth_start, depth_interval)
     B, D, h, w = cost_volume.shape
-    fn = getattr(_library(), "atvsnet_softargmin_" + _dtype_suffix(cost_volume.dtype))
+    fn = getattr(LIB(), "atvsnet_softargmin_" + _dtype_suffix(cost_volume.dtype))
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
     out = torch.empty((B, h, w, 1), device=cost_volume.device, dtype=torch.float32)
     stats = (torch.empty((2, B, h, w), device=cost_volume.device, dtype=torch.float32)
@@ -242,7 +214,7 @@ def softargmin_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor,
                  int(path == "aligned"), stream)
     if err != 0:
         raise RuntimeError(f"softargmin kernel launch failed on the {path} path: cudaError {err}")
-    _count(softargmin_cuda, path, (B, D, h, w))
+    count_launch(softargmin_cuda, path, (B, D, h, w))
     return (out, stats) if with_stats else out
 
 
@@ -270,7 +242,7 @@ def _launch_gradient(counter, cost_volume, depth_start, depth_interval, offset, 
     _check_launch_inputs(name, cost_volume, depth_start, depth_interval,
                          maps=(("depth", depth), ("grad", grad)), stats=stats)
     B, D, h, w = cost_volume.shape
-    fn = getattr(_library(), "atvsnet_softargmin_backward_" + _dtype_suffix(cost_volume.dtype))
+    fn = getattr(LIB(), "atvsnet_softargmin_backward_" + _dtype_suffix(cost_volume.dtype))
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
     # the aligned path reads the maps 16 bytes at a time: a map that starts elsewhere (a
     # view into a larger buffer) is copied, which costs a few bytes per pixel
@@ -285,7 +257,7 @@ def _launch_gradient(counter, cost_volume, depth_start, depth_interval, offset, 
     if err != 0:
         raise RuntimeError(f"{name}: gradient kernel launch failed on the {path} path: "
                            f"cudaError {err}")
-    _count(counter, path, (B, D, h, w))
+    count_launch(counter, path, (B, D, h, w))
     return out
 
 
@@ -312,7 +284,7 @@ def _query_grid(name: str, what: str, n: int, shape, dtype, path, device) -> tup
     B, D, h, w = shape
     grid = (ctypes.c_int * n)()
     with torch.cuda.device(device):
-        err = getattr(_library(), name)(B, D, h * w, packet_pixels(dtype, path), grid)
+        err = getattr(LIB(), name)(B, D, h * w, packet_pixels(dtype, path), grid)
     if err != 0:
         raise RuntimeError(f"reading the {what} grid failed: cudaError {err}")
     return tuple(grid)
@@ -425,7 +397,7 @@ def softargmin_partial_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor
     forward's (`kernel_path`)."""
     _check_launch_inputs("softargmin_partial_cuda", cost_volume, depth_start, depth_interval)
     B, D, h, w = cost_volume.shape
-    fn = getattr(_library(), "atvsnet_softargmin_partial_" + _dtype_suffix(cost_volume.dtype))
+    fn = getattr(LIB(), "atvsnet_softargmin_partial_" + _dtype_suffix(cost_volume.dtype))
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
     out = torch.empty((3, B, h, w), device=cost_volume.device, dtype=torch.float32)
     with torch.cuda.device(cost_volume.device):
@@ -435,7 +407,7 @@ def softargmin_partial_cuda(cost_volume: torch.Tensor, depth_start: torch.Tensor
     if err != 0:
         raise RuntimeError(f"softargmin partial kernel launch failed on the {path} path: "
                            f"cudaError {err}")
-    _count(softargmin_partial_cuda, path, (B, D, h, w))
+    count_launch(softargmin_partial_cuda, path, (B, D, h, w))
     return out
 
 
@@ -451,16 +423,8 @@ def softargmin_backward_stats_cuda(cost_volume: torch.Tensor, depth_start: torch
                             depth_interval, offset, stats, depth, grad)
 
 
-def reset_launch_counts() -> None:
-    """Set every kernel's launch counts (total, per path, per volume shape) to 0."""
-    for fn in (softargmin_cuda, softargmin_backward_cuda, softargmin_partial_cuda,
-               softargmin_backward_stats_cuda):
-        fn.launches = 0
-        fn.path_launches = dict.fromkeys(PATHS, 0)
-        fn.shape_launches = {}
-
-
-reset_launch_counts()
+reset_launch_counts = launch_counts(PATHS, softargmin_cuda, softargmin_backward_cuda,
+                                    softargmin_partial_cuda, softargmin_backward_stats_cuda)
 
 
 EMPTY_LAUNCH_GRIDS = ("forward", "gradient", "partial")
@@ -475,7 +439,7 @@ def empty_launch(cost_volume: torch.Tensor, grid: str = "forward") -> None:
     B, D, h, w = cost_volume.shape
     path = kernel_path(cost_volume.data_ptr(), h * w, cost_volume.dtype)
     with torch.cuda.device(cost_volume.device):
-        err = _library().atvsnet_softargmin_noop(B, D, h * w,
+        err = LIB().atvsnet_softargmin_noop(B, D, h * w,
                                                  packet_pixels(cost_volume.dtype, path),
                                                  EMPTY_LAUNCH_GRIDS.index(grid),
                                                  torch.cuda.current_stream().cuda_stream)

@@ -130,6 +130,14 @@ class Mesh:
         """This rank's planes of a D axis (the layout of P(..., 'depth'))."""
         return block(depth_num, self.n_depth, self.depth_rank)
 
+    def forward_layout(self, num_pairs: int, depth_num: int) -> dict:
+        """This rank's share of the N-view forward, as models.atvsnet.forward_stages takes
+        it: its pairs, the view group that AAM reduces over and its depth split."""
+        from atvsnet_torch.parallel.depth import DepthSplit   # depth builds on this module
+
+        return {"pairs": self.pair_block(num_pairs), "group": self.view_group,
+                "split": DepthSplit.of(self, depth_num)}
+
 
 def make_mesh(n_data: int = 1, n_view: int = 1, n_depth: int = 1, device=None) -> Mesh:
     """The ('data', 'view') mesh of this process, or ('data', 'view', 'depth') when

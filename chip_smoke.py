@@ -3201,6 +3201,8 @@ def load_baseline(root: str, module: str = "softargmin"):
     spec.loader.exec_module(base)
     base.SOURCE = Path(root, "atvsnet_torch", "csrc", base.SOURCE.name).resolve()
     base.LIBRARY = Path(root, "build", "atvsnet_torch", base.LIBRARY.name).resolve()
+    if hasattr(base, "LIB"):   # a checkout whose library is an ops.nvcc.CudaLibrary
+        base.LIB.source, base.LIB.library = base.SOURCE, base.LIBRARY
     base.build(force=True)
     return base
 

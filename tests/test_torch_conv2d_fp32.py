@@ -195,7 +195,8 @@ def test_function_gradients_are_pass_convs(monkeypatch, case):
     leaves = [t.clone().requires_grad_() for t in operands]
     twins = [t.clone().requires_grad_() for t in operands]
     bias, bias_twin = (leaves[2], twins[2]) if b is not None else (None, None)
-    y = C.Conv2dFp32Function.apply(leaves[0], leaves[1], bias, stride, rate, pads)
+    y = C.Conv2dFp32Function.apply(leaves[0], leaves[1], bias, stride, rate, pads,
+                                   C.conv2d_fp32_cuda)
     want = C.conv2d_fp32_torch(twins[0], twins[1], bias_twin, stride, rate, pads)
     assert torch.equal(y, want)
     g = torch.randn(y.shape, generator=torch.Generator().manual_seed(2))
@@ -208,7 +209,7 @@ def test_function_gradients_are_pass_convs(monkeypatch, case):
 def test_launch_counters(monkeypatch):
     """launches, path_launches and shape_launches (x shape, w shape, stride, rate, pads) count
     each launch; reset_launch_counts clears them. The launch itself is stood in here."""
-    monkeypatch.setattr(C, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(C, "check_channel_last_cuda", lambda *a: None)
     monkeypatch.setattr(C, "_launch", lambda x, wp, bias, w_shape, stride, rate, pads, p:
                         torch.zeros(C.output_shape(x.shape, w_shape, stride, rate, pads)))
     C.reset_launch_counts()

@@ -262,7 +262,8 @@ def test_function_gradients_are_pass_convs(monkeypatch, case):
     leaves = [t.clone().requires_grad_() for t in operands]
     twins = [t.clone().requires_grad_() for t in operands]
     bias, bias_twin = (leaves[2], twins[2]) if b is not None else (None, None)
-    y = C.Conv3dFp32Function.apply(leaves[0], leaves[1], bias, stride, 1, pads)
+    y = C.Conv3dFp32Function.apply(leaves[0], leaves[1], bias, stride, 1, pads,
+                                   C.conv3d_fp32_cuda)
     want = C.conv3d_fp32_torch(twins[0], twins[1], bias_twin, stride, 1, pads)
     assert torch.equal(y, want)
     g = torch.randn(y.shape, generator=torch.Generator().manual_seed(2))
@@ -274,7 +275,7 @@ def test_function_gradients_are_pass_convs(monkeypatch, case):
 
 def _stand_in_launches(monkeypatch):
     """The launcher's checks and launch stood in by the plain version on the CPU."""
-    monkeypatch.setattr(C, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(C, "check_channel_last_cuda", lambda *a: None)
     monkeypatch.setattr(C, "_launch", lambda x, w, bias, stride, pads, p:
                         C.conv3d_fp32_torch(x, w, bias, stride, 1, pads))
 
@@ -308,7 +309,7 @@ def test_forward_launch_counter_per_view_count(monkeypatch):
     model = init_model(cfg, device="cpu")
     _stand_in_launches(monkeypatch)
     monkeypatch.setattr(L, "conv3d_fp32", lambda x, w, b, s, r, pads: C.Conv3dFp32Function.apply(
-        x, w, b, s, r, tuple(tuple(q) for q in pads)))
+        x, w, b, s, r, tuple(tuple(q) for q in pads), C.conv3d_fp32_cuda))
     eligible = []
     real = L._padded_conv
 

@@ -61,6 +61,9 @@ def test_spmd_forward_matches_jax(key):
 
 
 def test_spmd_forward_equals_multi_view_forward():
+    """multi_view_forward_spmd without a mesh and multi_view_forward are two entry points of
+    one stage sequence (models.atvsnet.forward_stages): the SPMD one's outputs, a subset of
+    the served ones, equal them to the bit."""
     cfg = PipelineConfig(**SIZE)
     model = init_model(cfg, seed=1, device="cpu")
     images, cams = synthetic_scene(view_num=5, H=32, W=32, D=8, seed=4)

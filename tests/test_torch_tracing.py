@@ -4,7 +4,8 @@ five stages, the served request, the eval driver, the fusion.
 
 On the CPU: with no profiler session a span records nothing and costs one shared null
 context; under a session spans nest, share their root's request id and keep to the bound;
-the forward, DepthEstimator.predict / predict_many, run_eval_pc and fuse_scene record
+the forward (from each of its three entry points: served, SPMD and training),
+DepthEstimator.predict / predict_many, run_eval_pc and fuse_scene record
 their spans in order while their results and returned clocks stay as without; an int8mxu
 forward records a span and counts the elements of every quantized link and every qin conv's
 operands, and one without quantization records and counts none; device_trace
@@ -29,8 +30,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from atvsnet_torch.config import PipelineConfig
 from atvsnet_torch.data.synthetic import synthetic_scene, write_eth3d_scene
-from atvsnet_torch.models.atvsnet import center_images, multi_view_forward
+from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
+                                          multi_view_forward_train)
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.parallel.pipeline import multi_view_forward_spmd
 from atvsnet_torch.params import init_model, load_model
 from atvsnet_torch.serving import DepthEstimator
 from atvsnet_torch.utils import profiling
@@ -229,15 +232,27 @@ def test_device_trace_writes_the_sessions_spans(tmp_path):
 # ---- the program's spans ----
 
 
-def test_the_forward_records_its_stages_and_its_outputs_do_not_move():
+# the entry points of the one stage sequence (models.atvsnet.forward_stages)
+FORWARDS = {
+    "multi_view_forward": multi_view_forward,
+    "multi_view_forward_spmd": multi_view_forward_spmd,
+    "multi_view_forward_train": torch.no_grad()(multi_view_forward_train),
+}
+
+
+@pytest.mark.parametrize("entry", list(FORWARDS))
+def test_the_forward_records_its_stages_and_its_outputs_do_not_move(entry):
+    """Every entry point records `forward` and its five stages in order, and its outputs
+    are the same with and without a session."""
+    run = FORWARDS[entry]
     cfg = PipelineConfig(**SMALL)
     model = init_model(cfg, 0, "cpu")
     images, cams = synthetic_scene(view_num=3, H=64, W=96, D=16, seed=2)
     images = center_images(torch.from_numpy(images))
-    off = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    off = run(model, images, cams, cfg, out_prob_map=True)
     first = len(TRACER.spans)
     with _session():
-        on = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+        on = run(model, images, cams, cfg, out_prob_map=True)
     spans = _recorded(first)
     forward = _one(spans, "forward")
     stages = _children(spans, forward)

@@ -208,9 +208,10 @@ def test_kernel_route_calls_per_loss(monkeypatch, remat, conf, expected):
 
 @pytest.mark.parametrize("remat,out_prob_map", [(False, False), (True, True)])
 def test_train_forward_equals_serving_forward(remat, out_prob_map):
-    """multi_view_forward_train keeps its own copy of the stages beside multi_view_forward
-    (one soft-argmin per pair in stage 1, no pair_batch, remat): under no_grad, with
-    pair_batch off, the two give the same outputs to the bit."""
+    """multi_view_forward_train and multi_view_forward are two entry points of one stage
+    sequence (models.atvsnet.forward_stages; the training one without the reference
+    direction's depths and the served outputs, with remat while autograd records): under
+    no_grad, with pair_batch off, the two give the same outputs to the bit."""
     cfg = PipelineConfig(**SIZE, remat=remat, pair_batch=False)
     model = load_model(SPHERES, cfg, device="cpu")
     b = _batch("full")
