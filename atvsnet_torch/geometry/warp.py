@@ -8,8 +8,10 @@ which torch.nn.functional.grid_sample does not share:
   * an invalid nearest sample is NOT zeroed: it reads pixel (0, 0);
   * nearest rounds half to even (tf.round).
 
-The sampling math lives once, in `_sample`; the JAX package keeps two copies of it
-only to steer TPU layouts.
+The sampling math lives once, in `_sample`, under every warp here and the visual hull; the
+JAX package keeps two copies of it only to steer TPU layouts. On CUDA tensors it is one
+hand-written kernel (ops/plane_sweep.py, csrc/plane_sweep.cu) that gives the bits of its
+plain version, ops.plane_sweep.sample_torch, which CPU tensors take.
 
 PipelineConfig.warp_quant="int8" stores plane_sweep_warp's bilinear volumes on an int8
 lattice (`quantize_warp`). Nearest sweeps never quantize, and neither does the fused
@@ -26,6 +28,7 @@ import torch
 
 from atvsnet_torch.geometry.cameras import split_cam
 from atvsnet_torch.geometry.homography import pixel_grid
+from atvsnet_torch.ops import plane_sweep
 from atvsnet_torch.ops.fp32_passes import tf32
 
 
@@ -35,48 +38,13 @@ def _sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
     Returns (bilinear (B, P, C) or None, nearest (B, P, Cn) or None, valid (B, P)).
     `nearest_channels` selects the channels of the nearest sample; None skips it.
+    CUDA tensors take the plane-sweep kernel (under autograd), CPU tensors its plain
+    version, ops.plane_sweep.sample_torch; both give the same bits.
     """
-    B, H, W, C = image.shape
-    x = x.to(torch.float32) - 0.5
-    y = y.to(torch.float32) - 0.5
-    valid = (torch.isfinite(x) & torch.isfinite(y)
-             & (x >= 0) & (y >= 0) & (x < W - 1) & (y < H - 1))
-    # zero invalid coordinates before floor/round so the integer casts stay defined
-    x = torch.where(valid, x, 0.0)
-    y = torch.where(valid, y, 0.0)
-
-    flat = image.reshape(B * H * W, C)
-    base = (torch.arange(B, device=image.device) * (H * W))[:, None]
-
-    def gather(table, iy, ix):
-        rows = (iy * W + ix + base).reshape(-1)
-        return table.index_select(0, rows).reshape(B, -1, table.shape[-1])
-
-    nearest = None
-    if nearest_channels is not None:
-        nearest = gather(flat[:, nearest_channels],
-                         torch.round(y).long(), torch.round(x).long())
-    if not bilinear:
-        return None, nearest, valid
-
-    x0 = torch.floor(x).long()
-    y0 = torch.floor(y).long()
-    # invalid samples get x1 = y1 = 0 (= x = x0 = y0), so all four weights vanish
-    # and the output is exactly 0, as the reference's mask-multiply makes it
-    x1 = torch.where(valid, x0 + 1, 0)
-    y1 = torch.where(valid, y0 + 1, 0)
-    x0 = x0.clamp(0, W - 1)
-    y0 = y0.clamp(0, H - 1)
-    x0f, x1f, y0f, y1f = (v.to(torch.float32) for v in (x0, x1, y0, y1))
-    wa = ((y1f - y) * (x1f - x))[..., None].to(image.dtype)
-    wb = ((y1f - y) * (x - x0f))[..., None].to(image.dtype)
-    wc = ((y - y0f) * (x1f - x))[..., None].to(image.dtype)
-    wd = ((y - y0f) * (x - x0f))[..., None].to(image.dtype)
-    x1 = x1.clamp(max=W - 1)
-    y1 = y1.clamp(max=H - 1)
-    out = (wa * gather(flat, y0, x0) + wb * gather(flat, y0, x1)
-           + wc * gather(flat, y1, x0) + wd * gather(flat, y1, x1))
-    return out, nearest, valid
+    if image.device.type == "cuda":
+        return plane_sweep.PlaneSweepFunction.apply(image, x, y, bilinear, nearest_channels,
+                                                    plane_sweep.plane_sweep_cuda)
+    return plane_sweep.sample_torch(image, x, y, bilinear, nearest_channels)
 
 
 def interpolate(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

@@ -6,8 +6,8 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
   2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu, csrc/int8_conv.cu,
-                csrc/conv2d_fp32.cu and csrc/conv3d_fp32.cu into build/atvsnet_torch/, one
-                nvcc per source, all at once
+                csrc/conv2d_fp32.cu, csrc/conv3d_fp32.cu and csrc/plane_sweep.cu into
+                build/atvsnet_torch/, one nvcc per source, all at once
   3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
                 1e-6, NaN at the same pixels) at the main paths' shapes (the train
                 shape (1,32,32,40) in fp32 and bf16 among them), at edge shapes
@@ -37,7 +37,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 spheres weights on synthetic_scene(seed=0): shapes, finiteness, exactly
                 14 kernel launches, all on the aligned path, 137 launches of the fp32 conv2d
                 kernel (every "highest" 2D conv) and 228 of the fp32 conv3d kernel (every
-                "highest" 3D conv), and agreement with softargmin_impl="torch"
+                "highest" 3D conv), 20 of the plane-sweep sampler (5 a pair; by path as
+                SWEEP_FORWARD_PATHS), and agreement with softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms); then the same forward under
                 act_quant="int8mxu": every qin conv on the int8 kernel, 196 launches by
                 shape as INT8_MAIN_SHAPES and by path as the planner says (none generic),
@@ -60,7 +61,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 bits on a second call, kernel ms beside its bound, the call with its weight
                 packing, the plain version (the route's call before the kernel) and one
                 cuDNN conv with TF32 off (library), and their sums per forward; the fp32
-                conv3d kernel (phase "conv3d") the same way at every class of both forwards
+                conv3d kernel (phase "conv3d") the same way at every class of both forwards;
+                the plane-sweep sampler (phase "sweep") at every class of both forwards, on
+                the inputs of the class's first launch there: equal to the plain version
+                (ops.plane_sweep.sample_torch) to the bit in fp32 and with the image in bf16,
+                equal bits on a second call, kernel ms beside its bound (coordinates, source
+                map, outputs and mask moved once) and the plain version, and their sums
   7. profile    device time of one forward by kind of kernel, and its top kernels
                 (torch.profiler); the idle share is read against a CUDA-event bracket; the
                 same for the int8mxu forward
@@ -166,13 +172,13 @@ same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d native fusion eval train
-parallel quant depth precision helpers` runs just those phases after device and build (kernels:
-every kernel check and kernel timing above; int8: the int8 conv's checks, the flagship
-int8mxu forward and its profile, the int8 conv's times; conv2d, conv3d: the fp32 conv2d or
-conv3d kernel's checks and times; depth with the depth-split kernels' checks and times): a
-short run while working on one of them, which exits 1 and prints no kernels line and no ok
-line. `--only kernels --baseline DIR` also times DIR's soft-argmin kernels (another
+nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d sweep native fusion eval
+train parallel quant depth precision helpers` runs just those phases after device and build
+(kernels: every kernel check and kernel timing above; int8: the int8 conv's checks, the
+flagship int8mxu forward and its profile, the int8 conv's times; conv2d, conv3d, sweep: the
+fp32 conv2d or conv3d kernel's or the plane-sweep sampler's checks and times; depth with
+the depth-split kernels' checks and times): a short run while working on one of them,
+which exits 1 and prints no kernels line and no ok line. `--only kernels --baseline DIR` also times DIR's soft-argmin kernels (another
 checkout, say the parent commit unpacked under build/) in turns with this tree's on the
 same inputs; `--only int8 --baseline DIR` DIR's int8 conv kernel at every INT8_MAIN_SHAPES
 class, fp32 and bf16 out.
@@ -233,6 +239,7 @@ from atvsnet_torch.ops import conv2d_fp32 as C2
 from atvsnet_torch.ops import conv3d_fp32 as C3
 from atvsnet_torch.ops import fp32_passes
 from atvsnet_torch.ops import int8_conv as I8
+from atvsnet_torch.ops import plane_sweep as PS
 from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
 from atvsnet_torch.parallel.mesh import auto_mesh_shape, make_mesh
@@ -476,6 +483,19 @@ def conv3d_forward_launches(views: int) -> int:
 
 def conv3d_int8mxu_launches(views: int) -> int:
     return 8 * (views - 1)
+
+
+# The plane-sweep sampler (ops.plane_sweep): launches per N-view forward, 5 a pair: CRM's two
+# sweeps (bilinear, 32 channels), the refinement's sweep (bilinear over 17 channels, the
+# nearest of the 17th and the mask) and its two 2D warps by depth (bilinear over 16 channels,
+# nearest over 1). The kernel gives the plain version's bits (ops.plane_sweep.sample_torch).
+def sweep_forward_launches(views: int) -> int:
+    return 5 * (views - 1)
+
+
+# launches a 5-view forward per "<kind>.<path>": CRM's sweeps and the 16-channel 2D warp on
+# the vector path, the 17-channel and 1-channel sources on the scalar one
+SWEEP_FORWARD_PATHS = {"bilinear.vector": 12, "bilinear_nearest.scalar": 4, "nearest.scalar": 4}
 
 
 # (name, ((B, D, H, W) of x, Ci, Co, stride)): the classes of the 5-view forward at
@@ -808,10 +828,13 @@ def phase_forward(model, images, cams, cfg):
     S.reset_launch_counts()
     C2.reset_launch_counts()
     C3.reset_launch_counts()
+    PS.reset_launch_counts()
     out = multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
     conv2d_launches = C2.conv2d_fp32_cuda.launches
     conv3d_launches = C3.conv3d_fp32_cuda.launches
+    sweep_launches = PS.plane_sweep_cuda.launches
+    sweep_paths = {k: v for k, v in PS.plane_sweep_cuda.path_launches.items() if v}
     launches = S.softargmin_cuda.launches
     by_path = dict(S.softargmin_cuda.path_launches)
     by_shape = dict(S.softargmin_cuda.shape_launches)
@@ -837,6 +860,9 @@ def phase_forward(model, images, cams, cfg):
          conv2d_expected_launches=conv2d_forward_launches(cfg.view_num),
          conv3d_launches=conv3d_launches,
          conv3d_expected_launches=conv3d_forward_launches(cfg.view_num),
+         sweep_launches=sweep_launches,
+         sweep_expected_launches=sweep_forward_launches(cfg.view_num),
+         sweep_launches_by_path=sweep_paths,
          launches_by_path=by_path, launches_by_shape=shape_counts(by_shape), bad_shapes=bad, nonfinite=nonfinite, depth_mean=float(depth.mean()),
          depth_min=float(depth.min()), depth_max=float(depth.max()),
          kernel_vs_plain=agree, diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
@@ -854,6 +880,10 @@ def phase_forward(model, images, cams, cfg):
                              f"{conv3d_forward_launches(cfg.view_num)}")
     if by_path["aligned"] != launches:
         raise AssertionError(f"the main path left the kernel's aligned path: {by_path}")
+    if sweep_launches != sweep_forward_launches(cfg.view_num) or sweep_paths != SWEEP_FORWARD_PATHS:
+        raise AssertionError(f"plane-sweep kernel launches {sweep_launches} by path {sweep_paths}, "
+                             f"expected {sweep_forward_launches(cfg.view_num)} by path "
+                             f"{SWEEP_FORWARD_PATHS}")
     if not agree_ok:
         raise AssertionError(f"kernel and plain forwards disagree: {agree}")
     return launches
@@ -1020,7 +1050,8 @@ def phase_profile(model, images, cams, cfg):
                                                              "Tensor5d", "nchw", "nhwc", "DSE::",
                                                              "region_transform"),
                   "softargmin (this repo's CUDA kernel)": ("softargmin",),
-                  "gather (warp sampling)": ("gather", "index"),
+                  "plane-sweep sampler (this repo's CUDA kernel)": ("plane_sweep_gather",),
+                  "gather (the confidence's, the fusion's)": ("gather", "index"),
                   "elementwise/reduce (BN, masks, AAM)": ("elementwise", "reduce", "Memcpy",
                                                           "Memset", "pool", "cat")}
     split = {c: 0.0 for c in categories}
@@ -3105,6 +3136,113 @@ def phase_conv3d(kind) -> dict:
     return totals
 
 
+def sweep_bound_ms(key, kind: str):
+    """Least time of one plane-sweep sample of class `key` (image shape, P, dtype, kind,
+    nearest channels): the coordinates read once (two fp32 a sample), the source map read
+    once, every output and the mask (a byte a sample) written once, over HBM bandwidth."""
+    (B, H, W, C), P_, dtype, what, nearest = key
+    elem = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    out_channels = (C if what != "nearest" else 0) + (nearest[1] if nearest else 0)
+    nbytes = B * P_ * (8 + out_channels * elem + 1) + B * H * W * C * elem
+    return nbytes / HBM_BYTES_PER_S[kind] * 1e3
+
+
+def sweep_classes(views: int) -> dict:
+    """{class key: (launches, (image, x, y, bilinear, nearest channels))} of one N-view
+    forward at 480x896, D=128 with the spheres weights: the classes from the kernel's shape
+    counter (whose launches must be sweep_forward_launches(views)), each with the inputs of
+    its first launch in the forward, copied."""
+    cfg = PipelineConfig(view_num=views)
+    images, cams = synthetic_scene(view_num=views, H=cfg.max_h, W=cfg.max_w, D=cfg.max_d, seed=0)
+    model = load_model(SPHERES, cfg, device="cuda")
+    first, launch = {}, PS._launch
+
+    def record(image, x, y, bilinear, nearest, p):
+        key = (tuple(image.shape), x.shape[1], str(image.dtype).replace("torch.", ""),
+               p["kind"], nearest)
+        if key not in first:
+            sl = None if nearest is None else slice(nearest[0], nearest[0] + nearest[1])
+            first[key] = (image.clone(), x.clone(), y.clone(), bilinear, sl)
+        return launch(image, x, y, bilinear, nearest, p)
+
+    PS.reset_launch_counts()
+    PS._launch = record
+    try:
+        with torch.no_grad():
+            multi_view_forward(model, images, cams, cfg)
+        torch.cuda.synchronize()
+    finally:
+        PS._launch = launch
+    if PS.plane_sweep_cuda.launches != sweep_forward_launches(views):
+        raise AssertionError(f"{views}-view forward: {PS.plane_sweep_cuda.launches} plane-sweep "
+                             f"launches, expected {sweep_forward_launches(views)}")
+    classes = {k: (n, first[k]) for k, n in PS.plane_sweep_cuda.shape_launches.items()}
+    del model
+    torch.cuda.empty_cache()
+    return classes
+
+
+def same_bits(got, want) -> bool:
+    """Whether two samples' outputs (tuples with None where not asked for) agree bit for bit."""
+    def bits(t):
+        return t.view(torch.uint8) if t.dtype == torch.bool else t.view(
+            {4: torch.int32, 2: torch.int16}[t.element_size()])
+
+    return all((a is None and b is None) or (a is not None and b is not None and a.shape == b.shape
+                                             and torch.equal(bits(a), bits(b)))
+               for a, b in zip(got, want))
+
+
+def phase_sweep(kind) -> dict:
+    """The plane-sweep sampler at every class of the 5-view (served) and 8-view (eval)
+    forwards at 480x896, D=128, on the inputs of the class's first launch in the forward:
+    held to the plain version (ops.plane_sweep.sample_torch, the route's chain before the
+    kernel) to the bit in float32 and with the image in bfloat16, the same bits on a second
+    call, and timed beside its bound and the plain version. Returns the per-forward sums for
+    each view count."""
+    totals, ok = {}, True
+    for views in CONV2D_VIEWS:
+        classes = sweep_classes(views)
+        tot = dict.fromkeys(("kernel_ms", "call_ms", "plain_ms", "bound_ms"), 0.0)
+        for key, (n, (image, x, y, bilinear, sl)) in sorted(classes.items(), key=lambda kv: -kv[0][1]):
+            nearest = PS.nearest_range(sl, image.shape[-1])
+            p = PS.plan(image.shape[-1], image.dtype, bilinear, nearest)
+            got = PS.plane_sweep_cuda(image, x, y, bilinear, sl)
+            again = PS.plane_sweep_cuda(image, x, y, bilinear, sl)
+            want = PS.sample_torch(image, x, y, bilinear, sl)
+            held = same_bits(got, want) and same_bits(again, got)
+            del got, again, want
+            half = image.bfloat16()
+            bf16_held = same_bits(PS.plane_sweep_cuda(half, x, y, bilinear, sl),
+                                  PS.sample_torch(half, x, y, bilinear, sl))
+            ok = ok and held and bf16_held
+            k_ms = device_ms(lambda *a: PS._launch(*a, bilinear, nearest, p), [(image, x, y)], 20)
+            c_ms = device_ms(lambda *a: PS.plane_sweep_cuda(*a, bilinear, sl), [(image, x, y)], 20)
+            with torch.no_grad():
+                pl_ms = device_ms(lambda *a: PS.sample_torch(*a, bilinear, sl), [(image, x, y)], 5)
+            b_ms = sweep_bound_ms(key, kind)
+            emit(phase="sweep", views=views, image=list(key[0]), samples=key[1], dtype=key[2],
+                 kind=key[3], nearest=key[4], launches_per_forward=n, path=p["path"],
+                 valid_share=float(PS.sample_torch(image, x, y, False, slice(0, 1))[2].float().mean()),
+                 kernel_ms=k_ms, call_ms=c_ms, bound_ms=b_ms, kernel_over_bound=k_ms / b_ms,
+                 plain_ms=pl_ms, plain_over_kernel=pl_ms / k_ms, same_bits=held,
+                 bf16_same_bits=bf16_held, ok=held and bf16_held)
+            for name, v in (("kernel_ms", k_ms), ("call_ms", c_ms), ("plain_ms", pl_ms),
+                            ("bound_ms", b_ms)):
+                tot[name] += n * v
+            del half
+            torch.cuda.empty_cache()
+        emit(phase="sweep", what=f"per {views}-view forward", classes=len(classes),
+             launches=sum(n for n, _ in classes.values()), **tot,
+             kernel_over_bound=tot["kernel_ms"] / tot["bound_ms"])
+        totals[views] = tot
+        del classes
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("sweep: a class differs from the plain version or between calls")
+    return totals
+
+
 def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     """The flagship forward under act_quant="int8mxu" (deterministic cuDNN): every qin conv
     on the int8 kernel, counted from 0 over this forward by shape (INT8_MAIN_SHAPES) and by
@@ -3512,9 +3650,9 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
-                    choices=["kernels", "int8", "conv2d", "conv3d", "native", "fusion", "eval",
-                             "train",
-                             "parallel", "quant", "depth", "precision", "helpers"],
+                    choices=["kernels", "int8", "conv2d", "conv3d", "sweep", "native", "fusion",
+                             "eval", "train", "parallel", "quant", "depth", "precision",
+                             "helpers"],
                     default=None,
                     help="after device and build, run these phases alone: a short run while "
                          "working on one of them; it prints no kernels line and no ok line")
@@ -3532,8 +3670,8 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, bandwidth_assumed=HBM_BYTES_PER_S[kind])
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:   # one nvcc per source, together
-        for built in [pool.submit(m.build, True) for m in (S, I8, C2, C3)]:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:   # one nvcc per source, together
+        for built in [pool.submit(m.build, True) for m in (S, I8, C2, C3, PS)]:
             built.result()
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
          ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln],
@@ -3542,7 +3680,9 @@ def main() -> int:
          conv2d_library=os.path.relpath(C2.LIBRARY, ROOT),
          conv2d_ptxas=[ln for ln in C2.build_log.splitlines() if "ptxas" in ln],
          conv3d_library=os.path.relpath(C3.LIBRARY, ROOT),
-         conv3d_ptxas=[ln for ln in C3.build_log.splitlines() if "ptxas" in ln])
+         conv3d_ptxas=[ln for ln in C3.build_log.splitlines() if "ptxas" in ln],
+         sweep_library=os.path.relpath(PS.LIBRARY, ROOT),
+         sweep_ptxas=[ln for ln in PS.build_log.splitlines() if "ptxas" in ln])
 
     def kernels():
         phase_kernel(), phase_kernel_backward(), phase_kernel_split(), phase_kernel_int8()
@@ -3550,6 +3690,7 @@ def main() -> int:
         phase_timing_int8(kind)
         phase_conv2d(kind)
         phase_conv3d(kind)
+        phase_sweep(kind)
         if args.baseline:
             phase_kernel_turns(load_baseline(args.baseline), args.baseline)
 
@@ -3557,6 +3698,7 @@ def main() -> int:
         for phase in args.only:
             {"kernels": kernels, "int8": lambda: phase_int8_only(kind, args.baseline),
              "conv2d": lambda: phase_conv2d(kind), "conv3d": lambda: phase_conv3d(kind),
+             "sweep": lambda: phase_sweep(kind),
              "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
@@ -3583,6 +3725,7 @@ def main() -> int:
     int8_totals, int8_bound_by = phase_timing_int8(kind)
     conv2d_totals = phase_conv2d(kind)
     conv3d_totals = phase_conv3d(kind)
+    sweep_totals = phase_sweep(kind)
     phase_profile(model, images, cams, cfg)
     phase_profile(model, images, cams, cfg.replace(act_quant="int8mxu"))
     phase_pair_batch(model, images, cams, cfg)
@@ -3677,6 +3820,14 @@ def main() -> int:
         "launches_per_forward": {v: conv3d_forward_launches(v) for v in CONV2D_VIEWS},
         "per_forward": conv3d_totals,
         "library": "one cuDNN conv3d, TF32 off, default algorithms, on pre-padded operands",
+    }, {
+        "name": "plane_sweep", "kernel": "plane_sweep_gather_kernel", "route": "cuda",
+        "source": "atvsnet_torch/csrc/plane_sweep.cu",
+        "replaces": "none: aten's index_select gathers and their elementwise chain under the "
+                    "port's geometry.warp._sample (the JAX package's sampler is XLA's, "
+                    "atvsnet_tpu/geometry/warp.py)",
+        "launches_per_forward": {v: sweep_forward_launches(v) for v in CONV2D_VIEWS},
+        "per_forward": sweep_totals, "library": None,
     }])
     emit(ok=True, device={"platform": "gpu", "kind": name, "count": torch.cuda.device_count()})
     return 0
