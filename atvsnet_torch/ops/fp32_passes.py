@@ -45,6 +45,17 @@ through fp32 convs and matmuls, which is the mode's arithmetic itself.
   * `channel_last_conv` and its parts: the wrapper of the hand-written "highest" conv
     kernels (ops.conv2d_fp32, ops.conv3d_fp32) for any number of spatial axes, where a
     kernel module gives only its launcher.
+
+Tracing, in "high" and "default" only and only while a torch.profiler session records
+(utils.profiling): each leaf's operand rounding is the device span `passes.round`
+(chain=False: the leaf's conv runs between two such spans), which adds the elements of the
+leaf's two operands to the counter `passes.round.elements` (each counted once, though
+"high" rounds it into two pieces); and the forward call of every leaf is counted by its
+launcher, `pass_conv`, `pass_conv_transpose` or `pass_matmul` (ops.nvcc.launch_counts:
+`launches`, `path_launches` by mode, `shape_launches` by the key (kind, x's or a's shape,
+w's or b's shape, stride, padding, dilation, groups, mode), kind one of conv2d, conv3d,
+conv_transpose and matmul); `reset_launch_counts` zeroes them. "highest" records and counts
+nothing.
 """
 
 from __future__ import annotations
@@ -58,8 +69,11 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from atvsnet_torch.config import FP32_PRECISION_MODES
+from atvsnet_torch.ops.nvcc import count_launch, launch_counts
+from atvsnet_torch.utils.profiling import TRACER, recording
 
 _F32 = torch.float32
+ROUNDED_MODES = ("high", "default")
 
 
 def check_mode(mode: str) -> str:
@@ -107,12 +121,18 @@ def _passes(op: Callable, a: torch.Tensor, b: torch.Tensor, mode: str,
 
     if mode == "highest":
         return run(a, b, bias)
+    with TRACER.span("passes.round", device=a.device, chain=False):
+        TRACER.count("passes.round.elements", a.numel() + b.numel())
+        if mode == "default":
+            a, b = bf16_round(a), bf16_round(b)
+        else:
+            (ah, al), (bh, bl) = bf16_split(a), bf16_split(b)
+            if cat is not None and not exact:
+                small = torch.cat([ah, al], dim=cat[0]), torch.cat([bl, bh], dim=cat[1])
     if mode == "default":
-        return run(bf16_round(a), bf16_round(b), bias)
-    (ah, al), (bh, bl) = bf16_split(a), bf16_split(b)
+        return run(a, b, bias)
     if cat is not None and not exact:
-        return run(ah, bh, bias) + op(torch.cat([ah, al], dim=cat[0]),
-                                      torch.cat([bl, bh], dim=cat[1]))
+        return run(ah, bh, bias) + op(*small)
     return run(ah, bh, bias) + run(ah, bl) + run(al, bh)
 
 
@@ -161,6 +181,10 @@ class ConvSpec:
     def grad_input_cat(self):
         return None if self.groups != 1 else (1, 1 if self.transposed else 0)
 
+    def kind(self) -> str:
+        """The leaf's kind in the launch counts' keys."""
+        return "conv_transpose" if self.transposed else f"conv{len(self.stride)}d"
+
 
 def _conv_forward(x, w, mode, spec: ConvSpec, exact=False, bias=None):
     return _passes(spec.forward, x, w, mode, spec.forward_cat(), exact, bias)
@@ -175,12 +199,23 @@ def _conv_grad_weight(x, g, w, mode, spec: ConvSpec, exact=False):
     return _passes(lambda x_, g_: spec.grad_weight(x_, g_, w), x, g, mode, (0, 0), exact)
 
 
+def _count(launcher, a, b, mode: str, spec: Optional[ConvSpec] = None) -> None:
+    """Count a "high" or "default" leaf's forward call (a matmul's without a spec) while a
+    profiler records."""
+    if mode != "highest" and recording():
+        kind, geometry = (("matmul", ((), (), (), 1)) if spec is None else
+                          (spec.kind(), (spec.stride, spec.padding, spec.dilation, spec.groups)))
+        count_launch(launcher, mode, (kind, tuple(a.shape), tuple(b.shape)) + geometry
+                     + (mode,))
+
+
 class _PassConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, mode, spec):
         ctx.save_for_backward(x, w)
         ctx.mode, ctx.spec = mode, spec
         ctx.bias_sizes = None if bias is None else list(bias.shape)
+        _count(pass_conv_transpose if spec.transposed else pass_conv, x, w, mode, spec)
         with tf32(mode != "highest"):
             return _conv_forward(x, w, mode, spec, bias=bias)
 
@@ -265,6 +300,7 @@ class _PassMatmul(torch.autograd.Function):
     def forward(ctx, a, b, mode):
         ctx.save_for_backward(a, b)
         ctx.mode = mode
+        _count(pass_matmul, a, b, mode)
         with tf32(mode != "highest"):
             return _mm_forward(a, b, mode)
 
@@ -287,6 +323,9 @@ def pass_matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     if b.ndim != 2:
         raise ValueError(f"pass_matmul takes a 2D right operand, got {tuple(b.shape)}")
     return _PassMatmul.apply(a, b, check_mode(mode))
+
+
+reset_launch_counts = launch_counts(ROUNDED_MODES, pass_conv, pass_conv_transpose, pass_matmul)
 
 
 def matmul_plain(a, b, mode, g=None) -> dict:

@@ -7,7 +7,8 @@ fresh interpreter leaves that module out.
 The kernel libraries: every hand-written kernel's module declares its library through
 ops.nvcc.CudaLibrary (built on first use, loaded once, its entry points typed) and counts
 its launches through ops.nvcc.launch_counts, whose reset_launch_counts zeroes every
-launcher's counts with the path keys each kernel has always had.
+launcher's counts with the path keys each kernel has always had; so do the pass leaves of
+fp32_precision "high" and "default" (ops.fp32_passes), keyed by mode.
 """
 
 import ctypes
@@ -19,7 +20,8 @@ import threading
 
 import pytest
 
-from atvsnet_torch.ops import conv2d_fp32, conv3d_fp32, int8_conv, nvcc, plane_sweep, softargmin
+from atvsnet_torch.ops import (conv2d_fp32, conv3d_fp32, fp32_passes, int8_conv, nvcc,
+                                plane_sweep, softargmin)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
@@ -33,6 +35,7 @@ LAUNCHERS = {
     plane_sweep: (("plane_sweep_cuda",), tuple(f"{kind}.{path}" for kind in
                                                ("bilinear", "bilinear_nearest", "nearest")
                                                for path in ("vector", "scalar"))),
+    fp32_passes: (("pass_conv", "pass_conv_transpose", "pass_matmul"), ("high", "default")),
 }
 
 

@@ -8,8 +8,11 @@ the forward (from each of its three entry points: served, SPMD and training),
 DepthEstimator.predict / predict_many, run_eval_pc and fuse_scene record
 their spans in order while their results and returned clocks stay as without; an int8mxu
 forward records a span and counts the elements of every quantized link and every qin conv's
-operands, and one without quantization records and counts none; device_trace
-writes the session's spans beside its one Chrome trace.
+operands, and one without quantization records and counts none; a forward under
+fp32_precision "default" or "high" records a span of every pass leaf's operand rounding,
+counts its elements and counts each leaf's launch by shape, and one under "highest", or
+with no session, none of them; device_trace writes the session's spans beside its one
+Chrome trace.
 
 On the card (marked `cuda`, skipped here at run time): a span's host interval holds its
 kernel's interval on the trace's clock, and its CUDA events time the kernel as the trace
@@ -18,6 +21,7 @@ trace holds no operation named after a span. Run them there with
 `python -m pytest --noconftest -q tests/test_torch_tracing.py`. This file imports no JAX.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -33,6 +37,7 @@ from atvsnet_torch.data.synthetic import synthetic_scene, write_eth3d_scene
 from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
                                           multi_view_forward_train)
 from atvsnet_torch.nn import layers as L
+from atvsnet_torch.ops import fp32_passes
 from atvsnet_torch.parallel.pipeline import multi_view_forward_spmd
 from atvsnet_torch.params import init_model, load_model
 from atvsnet_torch.serving import DepthEstimator
@@ -306,6 +311,60 @@ def test_the_quantization_records_its_spans_and_counts(monkeypatch, mode):
         assert {stages[s.parent] for s in spans if s.name.startswith("quant.")} == {
             "forward.pairs", "forward.aam1", "forward.refine", "forward.aam2"}
         assert moved == elements and min(moved.values()) > 0
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
+
+
+@pytest.mark.parametrize("mode,session", [("default", True), ("high", True),
+                                          ("highest", True), ("default", False)])
+def test_the_pass_leaves_record_their_rounding_and_launches(monkeypatch, mode, session):
+    """Under "default" and "high" every conv and transposed-conv leaf records one
+    `passes.round` span, adds its operands' elements to `passes.round.elements` and is
+    counted once by its launcher, by shape; under "highest", or with no session, nothing
+    is recorded or counted; the outputs are the same either way."""
+    cfg = PipelineConfig(**SMALL, fp32_precision=mode)
+    model = init_model(cfg, 0, "cpu")
+    images, cams = synthetic_scene(view_num=3, H=64, W=96, D=16, seed=2)
+    images = center_images(torch.from_numpy(images))
+    off = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    calls = {"conv": [], "conv_transpose": []}
+
+    def counted(kind, leaf):
+        def wrapped(x, w, *args, **kw):
+            calls[kind].append(x.numel() + w.numel())
+            return leaf(x, w, *args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(L, "pass_conv", counted("conv", L.pass_conv))
+    monkeypatch.setattr(L, "pass_conv_transpose", counted("conv_transpose",
+                                                          L.pass_conv_transpose))
+    fp32_passes.reset_launch_counts()
+    first, before = len(TRACER.spans), TRACER.counters.get("passes.round.elements", 0)
+    with _session() if session else contextlib.nullcontext():
+        on = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    rounds = [s for s in _recorded(first) if s.name == "passes.round"]
+    elements = TRACER.counters.get("passes.round.elements", 0) - before
+    launches = {"conv": fp32_passes.pass_conv, "conv_transpose": fp32_passes.pass_conv_transpose}
+    try:
+        if mode == "highest" or not session:
+            assert rounds == [] and elements == 0
+            assert all(fn.launches == 0 and fn.shape_launches == {}
+                       for fn in launches.values()) and fp32_passes.pass_matmul.launches == 0
+        else:
+            # 3 views: the FEM's and the shallow FEM's convs, 2 pairs x 2 directions of CRM
+            # (9 transposed convs each), 2 refinements (3 each), the two AAMs
+            assert len(calls["conv_transpose"]) == 4 * 9 + 2 * 3
+            assert len(rounds) == sum(map(len, calls.values()))
+            assert elements == sum(map(sum, calls.values()))
+            for kind, fn in launches.items():
+                assert fn.launches == len(calls[kind]) == sum(fn.shape_launches.values())
+                assert fn.path_launches[mode] == fn.launches
+                assert all(k[-1] == mode and len(k) == 8 for k in fn.shape_launches)
+            assert {k[0] for k in fp32_passes.pass_conv.shape_launches} == {"conv2d", "conv3d"}
+            stages = {s.index: s.name for s in _recorded(first) if s.name in STAGES}
+            assert {stages[s.parent] for s in rounds} == set(STAGES)
+    finally:
+        fp32_passes.reset_launch_counts()
     for k in off:
         assert torch.equal(on[k], off[k]), k
 
