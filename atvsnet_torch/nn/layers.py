@@ -25,7 +25,9 @@ runs as before, whatever the mode, and so do the int8mxu convs. A float32 conv w
 1 in "highest" runs its forward on a CUDA kernel of the port, 2D convs on ops.conv2d_fp32's
 (an fp32 implicit GEMM) and 3x3x3 3D convs at rate 1 on ops.conv3d_fp32's (an fp32 direct
 convolution), on the CPU the same pass_conv call as the other modes, and its gradients as
-pass_conv's.
+pass_conv's. So does a float32 3x3x3 stride-2 3D deconv in "highest", on
+ops.conv3d_transpose_fp32's kernel (a parity decomposition that writes the cropped output),
+its gradients as pass_conv_transpose's.
 
 Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
   * quant (ActQuant, PipelineConfig.act_quant): every volume conv_bn / deconv_bn /
@@ -55,6 +57,8 @@ import torch.nn.functional as F
 from atvsnet_torch.ops.conv2d_fp32 import conv2d_fp32
 from atvsnet_torch.ops.conv3d_fp32 import conv3d_fp32
 from atvsnet_torch.ops.conv3d_fp32 import takes as conv3d_fp32_takes
+from atvsnet_torch.ops.conv3d_transpose_fp32 import conv3d_transpose_fp32
+from atvsnet_torch.ops.conv3d_transpose_fp32 import takes as conv3d_transpose_fp32_takes
 from atvsnet_torch.ops.fp32_passes import (pass_conv, pass_conv_transpose, pass_matmul,
                                            padded_channels_first)
 from atvsnet_torch.ops.int8_conv import conv3d_int8
@@ -286,7 +290,9 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
     `stride` planes later.
 
     precision: the fp32_precision mode of a float32 x, the JAX package's vjp of its conv
-    carrying the conv's precision to the transpose.
+    carrying the conv's precision to the transpose. A float32 3x3x3 stride-2 deconv in
+    "highest" runs on ops.conv3d_transpose_fp32, which writes the cropped output itself: its
+    CUDA kernel for CUDA tensors, this same pass_conv_transpose call and crop for CPU ones.
     """
     nd = x.ndim - 2
     out_sizes = [s * stride for s in x.shape[1:-1]]
@@ -297,12 +303,16 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
                              f"k={w.shape[2]}, stride={stride}")
         begs[0] = _same_pads(out_sizes[0] * split.size, 3, stride)[0] + stride
         x = split.halo(x, left=1, right=0)
-    if x.dtype == torch.float32:
-        y = pass_conv_transpose(_channels_first(x), w.to(x.dtype), precision, stride)
+    if (x.dtype == torch.float32 and precision == "highest"
+            and conv3d_transpose_fp32_takes(w.shape, stride)):
+        y = conv3d_transpose_fp32(x, w.to(x.dtype), begs)
     else:
-        y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
-    y = y[(slice(None), slice(None)) + tuple(slice(b, b + o) for b, o in zip(begs, out_sizes))]
-    y = _channels_last(y)
+        if x.dtype == torch.float32:
+            y = pass_conv_transpose(_channels_first(x), w.to(x.dtype), precision, stride)
+        else:
+            y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
+        crop = tuple(slice(b, b + o) for b, o in zip(begs, out_sizes))
+        y = _channels_last(y[(slice(None), slice(None)) + crop])
     return activate(y) if relu else y
 
 

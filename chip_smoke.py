@@ -6,7 +6,8 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device     nvidia-smi name and power limit, torch and CUDA versions
   2. build      nvcc builds atvsnet_torch/csrc/softargmin.cu, csrc/int8_conv.cu,
-                csrc/conv2d_fp32.cu, csrc/conv3d_fp32.cu and csrc/plane_sweep.cu into
+                csrc/conv2d_fp32.cu, csrc/conv3d_fp32.cu, csrc/conv3d_transpose_fp32.cu
+                and csrc/plane_sweep.cu into
                 build/atvsnet_torch/, one nvcc per source, all at once
   3. kernel     the CUDA soft-argmin against its plain PyTorch version (rtol 1e-5, atol
                 1e-6, NaN at the same pixels) at the main paths' shapes (the train
@@ -37,13 +38,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 spheres weights on synthetic_scene(seed=0): shapes, finiteness, exactly
                 14 kernel launches, all on the aligned path, 137 launches of the fp32 conv2d
                 kernel (every "highest" 2D conv) and 228 of the fp32 conv3d kernel (every
-                "highest" 3D conv), 20 of the plane-sweep sampler (5 a pair; by path as
-                SWEEP_FORWARD_PATHS), and agreement with softargmin_impl="torch"
+                "highest" 3D conv), 84 of the fp32 transposed conv3d kernel (every
+                "highest" 3D deconv, 21 a pair, all on its vector path; none in a forward
+                under fp32_precision="default"), 20 of the plane-sweep sampler (5 a pair; by
+                path as SWEEP_FORWARD_PATHS), and agreement with softargmin_impl="torch"
                 (both with cuDNN's deterministic algorithms); then the same forward under
                 act_quant="int8mxu": every qin conv on the int8 kernel, 196 launches by
                 shape as INT8_MAIN_SHAPES and by path as the planner says (none generic),
                 the soft-argmin's 14 as before, the conv3d kernel's 32 (the float entry
-                convs that are not qin)
+                convs that are not qin), the transposed conv3d kernel's 84
   6. timing     steady-state forward time and peak memory (default and deterministic
                 cuDNN algorithms); the forward with the port's activation
                 (torch.maximum(y, 0), the JAX package's tie rule) against torch.relu, in
@@ -62,6 +65,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 packing, the plain version (the route's call before the kernel) and one
                 cuDNN conv with TF32 off (library), and their sums per forward; the fp32
                 conv3d kernel (phase "conv3d") the same way at every class of both forwards;
+                the fp32 transposed conv3d kernel (phase "deconv3d") the same way at its
+                three classes of both forwards (K = 8 Ci; bound: input, weights and cropped
+                output once against 2 * 27 Ci Co FLOPs an input cell), beside the plain
+                version and one cuDNN conv_transpose3d with TF32 off (the pre-change call:
+                dgrad and fill);
                 the plane-sweep sampler (phase "sweep") at every class of both forwards, on
                 the inputs of the class's first launch there: equal to the plain version
                 (ops.plane_sweep.sample_torch) to the bit in fp32 and with the image in bf16,
@@ -172,11 +180,12 @@ same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d sweep native fusion eval
-train parallel quant depth precision helpers` runs just those phases after device and build
-(kernels: every kernel check and kernel timing above; int8: the int8 conv's checks, the
-flagship int8mxu forward and its profile, the int8 conv's times; conv2d, conv3d, sweep: the
-fp32 conv2d or conv3d kernel's or the plane-sweep sampler's checks and times; depth with
+nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d deconv3d sweep native
+fusion eval train parallel quant depth precision helpers` runs just those phases after device
+and build (kernels: every kernel check and kernel timing above; int8: the int8 conv's checks,
+the flagship int8mxu forward and its profile, the int8 conv's times; conv2d, conv3d,
+deconv3d, sweep: the fp32 conv2d, conv3d or transposed conv3d kernel's or the plane-sweep
+sampler's checks and times; depth with
 the depth-split kernels' checks and times): a short run while working on one of them,
 which exits 1 and prints no kernels line and no ok line. `--only kernels --baseline DIR` also times DIR's soft-argmin kernels (another
 checkout, say the parent commit unpacked under build/) in turns with this tree's on the
@@ -237,6 +246,7 @@ from atvsnet_torch.nn import aam
 from atvsnet_torch.nn import layers as L
 from atvsnet_torch.ops import conv2d_fp32 as C2
 from atvsnet_torch.ops import conv3d_fp32 as C3
+from atvsnet_torch.ops import conv3d_transpose_fp32 as CT
 from atvsnet_torch.ops import fp32_passes
 from atvsnet_torch.ops import int8_conv as I8
 from atvsnet_torch.ops import plane_sweep as PS
@@ -483,6 +493,21 @@ def conv3d_forward_launches(views: int) -> int:
 
 def conv3d_int8mxu_launches(views: int) -> int:
     return 8 * (views - 1)
+
+
+# The fp32 transposed conv3d kernel (ops.conv3d_transpose_fp32): launches per N-view forward
+# (every float32 3x3x3 stride-2 deconv in "highest", under int8mxu too: CRM's 3 a U-Net pass
+# in both directions and the refinement's 3, 21 a pair; none in "default"), and its classes
+# at 480x896, D = 128: (name, ((B, D, H, W) of x, Ci, Co)), each with crop begins 0.
+def deconv3d_forward_launches(views: int) -> int:
+    return 21 * (views - 1)
+
+
+DECONV3D_CLASSES = [
+    ("_4_0 64->32", ((1, 16, 15, 28), 64, 32)),
+    ("_5_0 32->16", ((1, 32, 30, 56), 32, 16)),
+    ("_6_0 16->8", ((1, 64, 60, 112), 16, 8)),
+]
 
 
 # The plane-sweep sampler (ops.plane_sweep): launches per N-view forward, 5 a pair: CRM's two
@@ -828,11 +853,14 @@ def phase_forward(model, images, cams, cfg):
     S.reset_launch_counts()
     C2.reset_launch_counts()
     C3.reset_launch_counts()
+    CT.reset_launch_counts()
     PS.reset_launch_counts()
     out = multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
     conv2d_launches = C2.conv2d_fp32_cuda.launches
     conv3d_launches = C3.conv3d_fp32_cuda.launches
+    deconv3d_launches = CT.conv3d_transpose_fp32_cuda.launches
+    deconv3d_paths = dict(CT.conv3d_transpose_fp32_cuda.path_launches)
     sweep_launches = PS.plane_sweep_cuda.launches
     sweep_paths = {k: v for k, v in PS.plane_sweep_cuda.path_launches.items() if v}
     launches = S.softargmin_cuda.launches
@@ -855,11 +883,23 @@ def phase_forward(model, images, cams, cfg):
     agree = depth_differences(out, plain, DEPTH_KEYS)
     agree_ok = within_kernel_bounds(agree)
     depth = out["depth"]
+    del plain
+    # "default" keeps pass_conv_transpose (cuDNN's TF32 dgrad): no launch of the kernel
+    CT.reset_launch_counts()
+    with torch.no_grad():
+        multi_view_forward(model, images, cams, cfg.replace(fp32_precision="default"))
+    torch.cuda.synchronize()
+    deconv3d_default_launches = CT.conv3d_transpose_fp32_cuda.launches
+    deconv3d_ok = (deconv3d_launches == deconv3d_forward_launches(cfg.view_num)
+                   and deconv3d_paths["scalar"] == 0 and deconv3d_default_launches == 0)
     emit(phase="forward", launches=launches, expected_launches=EXPECTED_LAUNCHES,
          conv2d_launches=conv2d_launches,
          conv2d_expected_launches=conv2d_forward_launches(cfg.view_num),
          conv3d_launches=conv3d_launches,
          conv3d_expected_launches=conv3d_forward_launches(cfg.view_num),
+         deconv3d_launches=deconv3d_launches, deconv3d_launches_by_path=deconv3d_paths,
+         deconv3d_expected_launches=deconv3d_forward_launches(cfg.view_num),
+         deconv3d_default_launches=deconv3d_default_launches,
          sweep_launches=sweep_launches,
          sweep_expected_launches=sweep_forward_launches(cfg.view_num),
          sweep_launches_by_path=sweep_paths,
@@ -867,7 +907,7 @@ def phase_forward(model, images, cams, cfg):
          depth_min=float(depth.min()), depth_max=float(depth.max()),
          kernel_vs_plain=agree, diff_at=DIFF_AT, max_share=MAX_DIFF_SHARE, max_diff=MAX_DIFF,
          ok=(not bad and not nonfinite and by_shape == MAIN_SHAPES
-             and by_path["aligned"] == launches and agree_ok))
+             and by_path["aligned"] == launches and agree_ok and deconv3d_ok))
     if bad or nonfinite:
         raise AssertionError(f"forward outputs wrong: shapes {bad}, non-finite {nonfinite}")
     if by_shape != MAIN_SHAPES:
@@ -878,6 +918,11 @@ def phase_forward(model, images, cams, cfg):
     if conv3d_launches != conv3d_forward_launches(cfg.view_num):
         raise AssertionError(f"fp32 conv3d kernel launches {conv3d_launches}, expected "
                              f"{conv3d_forward_launches(cfg.view_num)}")
+    if not deconv3d_ok:
+        raise AssertionError(f"fp32 transposed conv3d kernel launches {deconv3d_launches} by "
+                             f"path {deconv3d_paths}, {deconv3d_default_launches} under "
+                             f"default; expected {deconv3d_forward_launches(cfg.view_num)} on "
+                             f"the vector path, 0 under default")
     if by_path["aligned"] != launches:
         raise AssertionError(f"the main path left the kernel's aligned path: {by_path}")
     if sweep_launches != sweep_forward_launches(cfg.view_num) or sweep_paths != SWEEP_FORWARD_PATHS:
@@ -1046,6 +1091,7 @@ def phase_profile(model, images, cams, cfg):
     categories = {"int8 conv (this repo's CUDA kernel)": ("conv3d_int8",),
                   "fp32 conv2d (this repo's CUDA kernel)": ("conv2d_fp32",),
                   "fp32 conv3d (this repo's CUDA kernel)": ("conv3d_fp32",),
+                  "fp32 transposed conv3d (this repo's CUDA kernel)": ("conv3d_transpose",),
                   "cuDNN conv + cuBLAS gemm (incl. FFT conv)": ("conv", "xmma", "gemm", "fft",
                                                              "Tensor5d", "nchw", "nhwc", "DSE::",
                                                              "region_transform"),
@@ -2965,13 +3011,14 @@ def conv2d_bound_ms(x_shape, w_shape, out_shape, stride, rate, pads, kind: str):
 
 def kernel_classes(launcher, expected: int, views: int) -> dict:
     """{shape key: launches} of one N-view forward at 480x896, D=128 with the spheres weights,
-    from the shape counter of `launcher` (conv2d_fp32_cuda or conv3d_fp32_cuda), whose
-    launches must be `expected`."""
+    from the shape counter of `launcher` (conv2d_fp32_cuda, conv3d_fp32_cuda or
+    conv3d_transpose_fp32_cuda), whose launches must be `expected`."""
     cfg = PipelineConfig(view_num=views)
     images, cams = synthetic_scene(view_num=views, H=cfg.max_h, W=cfg.max_w, D=cfg.max_d, seed=0)
     model = load_model(SPHERES, cfg, device="cuda")
     C2.reset_launch_counts()
     C3.reset_launch_counts()
+    CT.reset_launch_counts()
     with torch.no_grad():
         multi_view_forward(model, images, cams, cfg)
     torch.cuda.synchronize()
@@ -3136,6 +3183,90 @@ def phase_conv3d(kind) -> dict:
     return totals
 
 
+def deconv3d_bound_ms(x_shape, w_shape, out_shape, kind: str):
+    """Least time of one fp32 3x3x3 stride-2 transposed conv3d that writes its cropped output:
+    the input, the weights and the cropped output moved once over HBM bandwidth vs 2 * 27 *
+    Ci * Co FLOPs per input cell (eight outputs) over the fp32 peak."""
+    nbytes = 4 * (math.prod(x_shape) + math.prod(w_shape) + math.prod(out_shape))
+    t_bytes = nbytes / HBM_BYTES_PER_S[kind] * 1e3
+    cells = math.prod(out_shape[1:-1]) // 8 * out_shape[0]
+    t_ops = 2 * 27 * w_shape[0] * w_shape[1] * cells / FP32_FLOP_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_deconv3d(kind) -> dict:
+    """The fp32 transposed conv3d kernel at every class of the 5-view (served) and 8-view
+    (eval) forwards at 480x896, D=128 (recorded from each forward's shape counter): held to
+    the float64 product (conv_exact of the transposed conv, cropped) within
+    conv2d_kernel_bound(8 Ci) of max sum |a||b|, the same bits on a second call, and timed
+    beside its bound, the call through the wrapper, the plain version (the route's call
+    before the kernel: pass_conv_transpose in "highest", then the crop's view) and, as the
+    yardstick, that call's cuDNN transposed conv alone (TF32 off: convolveNd_dgrad with its
+    setTensor5d fill; its error beside the kernel's). Returns the per-forward sums for each
+    view count."""
+    totals, ok = {}, True
+    spec = fp32_passes.ConvSpec.of(3, 2, transposed=True)
+    for views in CONV2D_VIEWS:
+        classes = kernel_classes(CT.conv3d_transpose_fp32_cuda,
+                                 deconv3d_forward_launches(views), views)
+        tot = dict.fromkeys(("kernel_ms", "call_ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        ordered = sorted(classes.items(), key=lambda kv: -math.prod(kv[0][0]) * kv[0][1][1])
+        for i, ((xs, ws, begs), n) in enumerate(ordered):
+            out_shape = CT.output_shape(xs, ws, begs)
+            per = 4 * (math.prod(xs) + math.prod(out_shape))
+            nbuf = max(2, min(64, math.ceil(200e6 / per)))
+            g = torch.Generator(device="cuda").manual_seed(2400 + i)
+            bufs = [(torch.randn(xs, device="cuda", generator=g),
+                     torch.randn(ws, device="cuda", generator=g) / math.sqrt(8 * ws[0]))
+                    for _ in range(nbuf)]
+            x, w = bufs[0]
+            p = CT.plan(xs[-1], ws[1])
+            got = CT.conv3d_transpose_fp32_cuda(x, w, begs)
+            again = CT.conv3d_transpose_fp32_cuda(x, w, begs)
+            crop = (slice(None), slice(None)) + tuple(slice(b, 2 * m)
+                                                      for m, b in zip(xs[1:4], begs))
+            xc = x.movedim(-1, 1)
+            scale = float(fp32_passes.conv_exact(xc, w, spec, magnitude=True)["forward"][crop]
+                          .max())
+            exact = fp32_passes.conv_exact(xc, w, spec)["forward"][crop].movedim(1, -1)
+            with fp32_passes.tf32(False):
+                lib_out = torch.nn.functional.conv_transpose3d(xc, w, stride=2)[crop]
+            err = float((got.double() - exact).abs().max()) / scale
+            lib_err = float((lib_out.movedim(1, -1).double() - exact).abs().max()) / scale
+            del exact, lib_out
+            bound = conv2d_kernel_bound(8 * ws[0])
+            same_bits = bool(torch.equal(got, again))
+            held = err <= bound and same_bits
+            ok = ok and held
+            k_ms = device_ms(lambda x_, w_: CT._launch(x_, w_, begs, p), bufs, 20)
+            c_ms = device_ms(lambda x_, w_: CT.conv3d_transpose_fp32_cuda(x_, w_, begs),
+                             bufs, 20)
+            with torch.no_grad():
+                pl_ms = device_ms(lambda x_, w_: CT.conv3d_transpose_fp32_torch(x_, w_, begs),
+                                  bufs, 10)
+            with fp32_passes.tf32(False):
+                lib_ms = device_ms(lambda x_, w_: torch.nn.functional.conv_transpose3d(
+                    x_.movedim(-1, 1), w_, stride=2), bufs, 10)
+            b_ms, b_by = deconv3d_bound_ms(xs, ws, out_shape, kind)
+            emit(phase="deconv3d", views=views, x=list(xs), w=list(ws), begs=list(begs),
+                 launches_per_forward=n, plan=p, kernel_ms=k_ms, call_ms=c_ms, bound_ms=b_ms,
+                 bound_by=b_by, kernel_over_bound=k_ms / b_ms, plain_ms=pl_ms,
+                 library_ms=lib_ms, error_over_max_sum_abs=err, library_error=lib_err,
+                 error_bound=bound, same_bits=same_bits, ok=held)
+            for key, v in (("kernel_ms", k_ms), ("call_ms", c_ms), ("plain_ms", pl_ms),
+                           ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                tot[key] += n * v
+            del bufs, got, again, xc
+            torch.cuda.empty_cache()
+        emit(phase="deconv3d", what=f"per {views}-view forward", classes=len(classes),
+             launches=sum(classes.values()), kernel_over_bound=tot["kernel_ms"] / tot["bound_ms"],
+             **tot)
+        totals[views] = tot
+    if not ok:
+        raise AssertionError("deconv3d: a class missed its bound or changed bits between calls")
+    return totals
+
+
 def sweep_bound_ms(key, kind: str):
     """Least time of one plane-sweep sample of class `key` (image shape, P, dtype, kind,
     nearest channels): the coordinates read once (two fp32 a sample), the source map read
@@ -3259,12 +3390,14 @@ def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     I8.reset_launch_counts()
     S.reset_launch_counts()
     C3.reset_launch_counts()
+    CT.reset_launch_counts()
     t0 = time.perf_counter()
     out = multi_view_forward(model, images, cams, mxu)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = I8.conv3d_int8_cuda.launches
     conv3d_launches = C3.conv3d_fp32_cuda.launches
+    deconv3d_launches = CT.conv3d_transpose_fp32_cuda.launches
     by_shape = dict(I8.conv3d_int8_cuda.shape_launches)
     by_path = dict(I8.conv3d_int8_cuda.path_launches)
     softargmin_by_shape = dict(S.softargmin_cuda.shape_launches)
@@ -3286,10 +3419,13 @@ def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     ok = (not bad and not nonfinite and by_shape == INT8_MAIN_SHAPES
           and launches == INT8_EXPECTED_LAUNCHES and softargmin_by_shape == MAIN_SHAPES
           and by_path == expected_paths and by_path["generic"] == 0
-          and conv3d_launches == conv3d_int8mxu_launches(cfg.view_num))
+          and conv3d_launches == conv3d_int8mxu_launches(cfg.view_num)
+          and deconv3d_launches == deconv3d_forward_launches(cfg.view_num))
     emit(phase="forward", act_quant="int8mxu", int8_launches=launches,
          conv3d_launches=conv3d_launches,
          conv3d_expected_launches=conv3d_int8mxu_launches(cfg.view_num),
+         deconv3d_launches=deconv3d_launches,
+         deconv3d_expected_launches=deconv3d_forward_launches(cfg.view_num),
          expected_int8_launches=INT8_EXPECTED_LAUNCHES,
          int8_launches_by_shape={"x".join(map(str, k)): v for k, v in by_shape.items()},
          int8_launches_by_path=by_path, expected_int8_launches_by_path=expected_paths,
@@ -3307,6 +3443,10 @@ def phase_forward_int8(model, images, cams, cfg) -> tuple[int, dict]:
     if conv3d_launches != conv3d_int8mxu_launches(cfg.view_num):
         raise AssertionError(f"fp32 conv3d launches under int8mxu {conv3d_launches}, expected "
                              f"{conv3d_int8mxu_launches(cfg.view_num)}")
+    if deconv3d_launches != deconv3d_forward_launches(cfg.view_num):
+        raise AssertionError(f"fp32 transposed conv3d launches under int8mxu "
+                             f"{deconv3d_launches}, expected "
+                             f"{deconv3d_forward_launches(cfg.view_num)}")
     return launches, by_path
 
 
@@ -3650,7 +3790,8 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
-                    choices=["kernels", "int8", "conv2d", "conv3d", "sweep", "native", "fusion",
+                    choices=["kernels", "int8", "conv2d", "conv3d", "deconv3d", "sweep",
+                             "native", "fusion",
                              "eval", "train", "parallel", "quant", "depth", "precision",
                              "helpers"],
                     default=None,
@@ -3670,8 +3811,8 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda, bandwidth_assumed=HBM_BYTES_PER_S[kind])
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:   # one nvcc per source, together
-        for built in [pool.submit(m.build, True) for m in (S, I8, C2, C3, PS)]:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:   # one nvcc per source, together
+        for built in [pool.submit(m.build, True) for m in (S, I8, C2, C3, CT, PS)]:
             built.result()
     emit(phase="build", seconds=time.perf_counter() - t0, library=os.path.relpath(S.LIBRARY, ROOT),
          ptxas=[ln for ln in S.build_log.splitlines() if "ptxas" in ln],
@@ -3681,6 +3822,8 @@ def main() -> int:
          conv2d_ptxas=[ln for ln in C2.build_log.splitlines() if "ptxas" in ln],
          conv3d_library=os.path.relpath(C3.LIBRARY, ROOT),
          conv3d_ptxas=[ln for ln in C3.build_log.splitlines() if "ptxas" in ln],
+         deconv3d_library=os.path.relpath(CT.LIBRARY, ROOT),
+         deconv3d_ptxas=[ln for ln in CT.build_log.splitlines() if "ptxas" in ln],
          sweep_library=os.path.relpath(PS.LIBRARY, ROOT),
          sweep_ptxas=[ln for ln in PS.build_log.splitlines() if "ptxas" in ln])
 
@@ -3690,6 +3833,7 @@ def main() -> int:
         phase_timing_int8(kind)
         phase_conv2d(kind)
         phase_conv3d(kind)
+        phase_deconv3d(kind)
         phase_sweep(kind)
         if args.baseline:
             phase_kernel_turns(load_baseline(args.baseline), args.baseline)
@@ -3698,6 +3842,7 @@ def main() -> int:
         for phase in args.only:
             {"kernels": kernels, "int8": lambda: phase_int8_only(kind, args.baseline),
              "conv2d": lambda: phase_conv2d(kind), "conv3d": lambda: phase_conv3d(kind),
+             "deconv3d": lambda: phase_deconv3d(kind),
              "sweep": lambda: phase_sweep(kind),
              "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
@@ -3725,6 +3870,7 @@ def main() -> int:
     int8_totals, int8_bound_by = phase_timing_int8(kind)
     conv2d_totals = phase_conv2d(kind)
     conv3d_totals = phase_conv3d(kind)
+    deconv3d_totals = phase_deconv3d(kind)
     sweep_totals = phase_sweep(kind)
     phase_profile(model, images, cams, cfg)
     phase_profile(model, images, cams, cfg.replace(act_quant="int8mxu"))
@@ -3820,6 +3966,15 @@ def main() -> int:
         "launches_per_forward": {v: conv3d_forward_launches(v) for v in CONV2D_VIEWS},
         "per_forward": conv3d_totals,
         "library": "one cuDNN conv3d, TF32 off, default algorithms, on pre-padded operands",
+    }, {
+        "name": "conv3d_transpose_fp32", "kernel": "conv3d_transpose_fp32_parity_kernel",
+        "route": "cuda", "source": "atvsnet_torch/csrc/conv3d_transpose_fp32.cu",
+        "replaces": "none: cuDNN under the port's fp32 'highest' 3D deconvs (the JAX package "
+                    "leaves them to XLA, atvsnet_tpu/nn/layers.py deconv)",
+        "launches_per_forward": {v: deconv3d_forward_launches(v) for v in CONV2D_VIEWS},
+        "per_forward": deconv3d_totals,
+        "library": "one cuDNN conv_transpose3d, TF32 off (convolveNd_dgrad and its setTensor5d "
+                   "fill of the uncropped output)",
     }, {
         "name": "plane_sweep", "kernel": "plane_sweep_gather_kernel", "route": "cuda",
         "source": "atvsnet_torch/csrc/plane_sweep.cu",

@@ -20,8 +20,8 @@ import threading
 
 import pytest
 
-from atvsnet_torch.ops import (conv2d_fp32, conv3d_fp32, fp32_passes, int8_conv, nvcc,
-                                plane_sweep, softargmin)
+from atvsnet_torch.ops import (conv2d_fp32, conv3d_fp32, conv3d_transpose_fp32, fp32_passes,
+                                int8_conv, nvcc, plane_sweep, softargmin)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
@@ -32,6 +32,7 @@ LAUNCHERS = {
     int8_conv: (("conv3d_int8_cuda",), ("generic", "ring", "ring_cluster")),
     conv2d_fp32: (("conv2d_fp32_cuda",), ("vector", "scalar")),
     conv3d_fp32: (("conv3d_fp32_cuda",), ("vector", "scalar")),
+    conv3d_transpose_fp32: (("conv3d_transpose_fp32_cuda",), ("vector", "scalar")),
     plane_sweep: (("plane_sweep_cuda",), tuple(f"{kind}.{path}" for kind in
                                                ("bilinear", "bilinear_nearest", "nearest")
                                                for path in ("vector", "scalar"))),
