@@ -30,6 +30,7 @@ from atvsnet_torch.geometry.cameras import split_cam
 from atvsnet_torch.geometry.homography import pixel_grid
 from atvsnet_torch.ops import plane_sweep
 from atvsnet_torch.ops.fp32_passes import tf32
+from atvsnet_torch.utils.profiling import TRACER
 
 
 def _sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -92,12 +93,18 @@ def quantize_warp(out: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     bilinear corner weights are convex and an invalid sample is 0, so the volume never
     leaves [-127, 127] steps and a zero stays zero. fp32 arithmetic, round half to even,
     the result in out's dtype; inference only (round() has no gradient).
+
+    While a profiler records (utils.profiling.TRACER), the round trip is the span
+    `quant.warp` (chain=False, with CUDA events on a CUDA out, as nn.layers.quantize_act's
+    `quant.act`) and adds the volume's elements to the counter `quant.warp.elements`.
     """
-    divisor = torch.full((), 127.0, dtype=torch.float32, device=image.device)
-    s = (image.to(torch.float32).abs().amax(dim=(1, 2), keepdim=True) / divisor
-         + 1e-12)[:, None]                                 # (B, 1, 1, 1, C)
-    q = torch.clamp(torch.round(out.to(torch.float32) / s), -127.0, 127.0).to(torch.int8)
-    return (q.to(torch.float32) * s).to(out.dtype)
+    with TRACER.span("quant.warp", device=out.device, chain=False):
+        TRACER.count("quant.warp.elements", out.numel())
+        divisor = torch.full((), 127.0, dtype=torch.float32, device=image.device)
+        s = (image.to(torch.float32).abs().amax(dim=(1, 2), keepdim=True) / divisor
+             + 1e-12)[:, None]                             # (B, 1, 1, 1, C)
+        q = torch.clamp(torch.round(out.to(torch.float32) / s), -127.0, 127.0).to(torch.int8)
+        return (q.to(torch.float32) * s).to(out.dtype)
 
 
 def plane_sweep_warp(image: torch.Tensor, homographies: torch.Tensor,

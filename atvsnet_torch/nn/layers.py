@@ -27,7 +27,9 @@ runs as before, whatever the mode, and so do the int8mxu convs. A float32 conv w
 convolution), on the CPU the same pass_conv call as the other modes, and its gradients as
 pass_conv's. So does a float32 3x3x3 stride-2 3D deconv in "highest", on
 ops.conv3d_transpose_fp32's kernel (a parity decomposition that writes the cropped output),
-its gradients as pass_conv_transpose's.
+its gradients as pass_conv_transpose's. A bf16 conv or transposed conv outside the int8
+route is one call of `bf16_conv` (aten's, cuDNN on the card), which counts its calls by
+shape while a profiler records.
 
 Two options reach the 5D (B, D, h, w, C) volume ops as explicit arguments:
   * quant (ActQuant, PipelineConfig.act_quant): every volume conv_bn / deconv_bn /
@@ -59,13 +61,15 @@ from atvsnet_torch.ops.conv3d_fp32 import conv3d_fp32
 from atvsnet_torch.ops.conv3d_fp32 import takes as conv3d_fp32_takes
 from atvsnet_torch.ops.conv3d_transpose_fp32 import conv3d_transpose_fp32
 from atvsnet_torch.ops.conv3d_transpose_fp32 import takes as conv3d_transpose_fp32_takes
-from atvsnet_torch.ops.fp32_passes import (pass_conv, pass_conv_transpose, pass_matmul,
-                                           padded_channels_first)
+from atvsnet_torch.ops.fp32_passes import (ConvSpec, pass_conv, pass_conv_transpose,
+                                           pass_matmul, padded_channels_first)
 from atvsnet_torch.ops.int8_conv import conv3d_int8
-from atvsnet_torch.utils.profiling import TRACER
+from atvsnet_torch.ops.nvcc import count_launch, launch_counts
+from atvsnet_torch.utils.profiling import TRACER, recording
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+BF16_CONV_KINDS = ("conv2d", "conv3d", "conv_transpose")
 
 
 # a CPU scalar: binary ops take it beside a tensor on any device, with no allocation there
@@ -111,9 +115,36 @@ def _padded_conv(x: torch.Tensor, w: torch.Tensor, b, stride: int, rate: int, pa
     if x.dtype == torch.float32:
         return _channels_last(pass_conv(xc, w.to(x.dtype), precision, stride, padding, rate,
                                         groups, None if b is None else b.to(x.dtype)))
-    y = _CONV[nd](xc, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                  stride=stride, padding=padding, dilation=rate, groups=groups)
+    y = bf16_conv(xc, w.to(x.dtype), None if b is None else b.to(x.dtype), stride=stride,
+                  padding=padding, dilation=rate, groups=groups)
     return _channels_last(y)
+
+
+def bf16_conv(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              stride=1, padding=0, dilation=1, groups: int = 1,
+              transposed: bool = False) -> torch.Tensor:
+    """A conv leaf of a channel-first x that is not float32 (compute_dtype "bfloat16"), w
+    and bias in x's dtype: aten's conv, or with `transposed` its conv_transpose (padding 0,
+    no bias), cuDNN's on CUDA tensors, x's dtype out.
+
+    While a torch.profiler session records (utils.profiling), each call is counted on this
+    function (ops.nvcc.launch_counts): `launches`, `path_launches` by kind (conv2d, conv3d,
+    conv_transpose) and `shape_launches` by the key (kind, x's shape, w's shape, stride,
+    padding, dilation, groups), the geometry as ops.fp32_passes.ConvSpec holds it;
+    `reset_launch_counts` zeroes them. Nothing is counted otherwise."""
+    nd = x.ndim - 2
+    if recording():
+        spec = ConvSpec.of(nd, stride, padding, dilation, groups, transposed)
+        kind = "conv_transpose" if transposed else f"conv{nd}d"
+        count_launch(bf16_conv, kind, (kind, tuple(x.shape), tuple(w.shape), spec.stride,
+                                       spec.padding, spec.dilation, spec.groups))
+    if transposed:
+        return _CONV_T[nd](x, w, stride=stride)
+    return _CONV[nd](x, w, bias, stride=stride, padding=padding, dilation=dilation,
+                     groups=groups)
+
+
+reset_launch_counts = launch_counts(BF16_CONV_KINDS, bf16_conv)
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -310,7 +341,7 @@ def deconv(x: torch.Tensor, w: torch.Tensor, stride: int = 2, relu: bool = False
         if x.dtype == torch.float32:
             y = pass_conv_transpose(_channels_first(x), w.to(x.dtype), precision, stride)
         else:
-            y = _CONV_T[nd](_channels_first(x), w.to(x.dtype), stride=stride)
+            y = bf16_conv(_channels_first(x), w.to(x.dtype), stride=stride, transposed=True)
         crop = tuple(slice(b, b + o) for b, o in zip(begs, out_sizes))
         y = _channels_last(y[(slice(None), slice(None)) + crop])
     return activate(y) if relu else y

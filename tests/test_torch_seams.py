@@ -8,7 +8,8 @@ The kernel libraries: every hand-written kernel's module declares its library th
 ops.nvcc.CudaLibrary (built on first use, loaded once, its entry points typed) and counts
 its launches through ops.nvcc.launch_counts, whose reset_launch_counts zeroes every
 launcher's counts with the path keys each kernel has always had; so do the pass leaves of
-fp32_precision "high" and "default" (ops.fp32_passes), keyed by mode.
+fp32_precision "high" and "default" (ops.fp32_passes), keyed by mode, and the bf16 conv
+leaves (nn.layers.bf16_conv), keyed by kind.
 """
 
 import ctypes
@@ -20,6 +21,7 @@ import threading
 
 import pytest
 
+from atvsnet_torch.nn import layers
 from atvsnet_torch.ops import (conv2d_fp32, conv3d_fp32, conv3d_transpose_fp32, fp32_passes,
                                 int8_conv, nvcc, plane_sweep, softargmin)
 
@@ -37,6 +39,7 @@ LAUNCHERS = {
                                                ("bilinear", "bilinear_nearest", "nearest")
                                                for path in ("vector", "scalar"))),
     fp32_passes: (("pass_conv", "pass_conv_transpose", "pass_matmul"), ("high", "default")),
+    layers: (("bf16_conv",), ("conv2d", "conv3d", "conv_transpose")),
 }
 
 

@@ -11,7 +11,10 @@ forward records a span and counts the elements of every quantized link and every
 operands, and one without quantization records and counts none; a forward under
 fp32_precision "default" or "high" records a span of every pass leaf's operand rounding,
 counts its elements and counts each leaf's launch by shape, and one under "highest", or
-with no session, none of them; device_trace writes the session's spans beside its one
+with no session, none of them; a bf16 forward under warp_quant "int8" records a span of
+every plane-sweep volume's int8 round trip, with events of its own, and counts its elements,
+and every bf16 forward counts its conv leaves' launches by shape, while a forward without
+the warp lattice, at float32 or with no session records and counts none of them; device_trace writes the session's spans beside its one
 Chrome trace.
 
 On the card (marked `cuda`, skipped here at run time): a span's host interval holds its
@@ -34,6 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from atvsnet_torch.config import PipelineConfig
 from atvsnet_torch.data.synthetic import synthetic_scene, write_eth3d_scene
+from atvsnet_torch.geometry import warp as W
 from atvsnet_torch.models.atvsnet import (center_images, multi_view_forward,
                                           multi_view_forward_train)
 from atvsnet_torch.nn import layers as L
@@ -365,6 +369,70 @@ def test_the_pass_leaves_record_their_rounding_and_launches(monkeypatch, mode, s
             assert {stages[s.parent] for s in rounds} == set(STAGES)
     finally:
         fp32_passes.reset_launch_counts()
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
+
+
+BF16_MODES = {"bf16_int8s": dict(compute_dtype="bfloat16", act_quant="int8s", warp_quant="int8"),
+              "bf16": dict(compute_dtype="bfloat16"), "float32": dict(warp_quant="int8"),
+              "int8mxu": dict(act_quant="int8mxu")}
+
+
+@pytest.mark.parametrize("mode,session", [("bf16_int8s", True), ("bf16", True),
+                                          ("float32", True), ("int8mxu", True),
+                                          ("bf16_int8s", False)])
+def test_the_warp_lattice_and_the_bf16_leaves_record(monkeypatch, mode, session):
+    """Under warp_quant "int8" every CRM sweep volume's round trip is one `quant.warp` span,
+    opened unchained on the volume's device, whose elements `quant.warp.elements` counts;
+    in bf16 every conv and transposed-conv leaf is counted once by nn.layers.bf16_conv, by
+    kind and shape. The fp32 forwards, and the int8mxu one, count no bf16 leaf; without a
+    session nothing is recorded or counted; the outputs are the same either way."""
+    cfg = PipelineConfig(**SMALL, **BF16_MODES[mode])
+    model = init_model(cfg, 0, "cpu")
+    images, cams = synthetic_scene(view_num=3, H=64, W=96, D=16, seed=2)
+    images = center_images(torch.from_numpy(images))
+    off = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    volumes, opened = [], []
+    quantize, span = W.quantize_warp, TRACER.span
+
+    def counted(out, image):
+        volumes.append(out.numel())
+        return quantize(out, image)
+
+    def spied(name, *args, **kw):
+        opened.append((name, kw.get("device"), kw.get("chain", True)))
+        return span(name, *args, **kw)
+
+    monkeypatch.setattr(W, "quantize_warp", counted)
+    monkeypatch.setattr(TRACER, "span", spied)
+    L.reset_launch_counts()
+    first, before = len(TRACER.spans), TRACER.counters.get("quant.warp.elements", 0)
+    with _session() if session else contextlib.nullcontext():
+        on = multi_view_forward(model, images, cams, cfg, out_prob_map=True)
+    warps = [s for s in _recorded(first) if s.name == "quant.warp"]
+    elements = TRACER.counters.get("quant.warp.elements", 0) - before
+    leaf = L.bf16_conv
+    try:
+        if cfg.warp_quant == "int8" and session:
+            # 3 views: 2 pairs x 2 directions of CRM, one sweep each
+            assert len(warps) == len(volumes) == 4 and elements == sum(volumes) > 0
+            assert [o for o in opened if o[0] == "quant.warp"] == [
+                ("quant.warp", torch.device("cpu"), False)] * 4
+            stages = {s.index: s.name for s in _recorded(first) if s.name in STAGES}
+            assert {stages[s.parent] for s in warps} == {"forward.pairs"}
+        else:
+            assert warps == [] and elements == 0
+        if cfg.compute_dtype == "bfloat16" and session:
+            # the transposed convs: 2 pairs x 2 directions of CRM (9 each), 2 refinements (3)
+            assert leaf.path_launches["conv_transpose"] == 4 * 9 + 2 * 3
+            assert leaf.launches == sum(leaf.shape_launches.values()) == sum(
+                leaf.path_launches.values())
+            assert {k[0] for k in leaf.shape_launches} == {"conv2d", "conv3d", "conv_transpose"}
+            assert all(len(k) == 7 for k in leaf.shape_launches)
+        else:
+            assert leaf.launches == 0 and leaf.shape_launches == {}
+    finally:
+        L.reset_launch_counts()
     for k in off:
         assert torch.equal(on[k], off[k]), k
 
