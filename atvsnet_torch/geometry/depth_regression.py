@@ -43,8 +43,18 @@ def _align_corners_matrix(out_size: int, in_size: int) -> np.ndarray:
     return A
 
 
+_DEVICE_MATRICES: dict = {}
+
+
 def _matrix(out_size: int, in_size: int, device) -> torch.Tensor:
-    return torch.from_numpy(_align_corners_matrix(out_size, in_size)).to(device)
+    """_align_corners_matrix on `device`, uploaded once per (out, in, device) and kept: a
+    resize then copies nothing from the host, which a CUDA graph could not capture."""
+    key = (out_size, in_size, torch.device(device))
+    m = _DEVICE_MATRICES.get(key)
+    if m is None:
+        m = _DEVICE_MATRICES[key] = torch.from_numpy(
+            _align_corners_matrix(out_size, in_size)).to(device)
+    return m
 
 
 @tf32(False)

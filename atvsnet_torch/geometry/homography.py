@@ -48,7 +48,9 @@ def get_homographies(
     K_r, R_r, t_r = split_cam(right_cam.to(f32))
     depths = sweep_depths(depth_start.to(f32), depth_interval.to(f32), depth_num)  # (B, D)
 
-    K_l_inv = torch.linalg.inv(K_l)
+    # inv_ex: linalg.inv's inverse without its check of the factorization's info, which
+    # waits for the device and so cannot be captured into a CUDA graph
+    K_l_inv = torch.linalg.inv_ex(K_l).inverse
     R_l_T = R_l.transpose(-1, -2)
     R_r_T = R_r.transpose(-1, -2)
 

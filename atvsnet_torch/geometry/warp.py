@@ -158,7 +158,9 @@ def _relative_projection(left_cam: torch.Tensor, right_cam: torch.Tensor):
     f32 = torch.float32
     K_l, R_l, t_l = split_cam(left_cam.to(f32))
     K_r, R_r, t_r = split_cam(right_cam.to(f32))
-    K_l_inv = torch.linalg.inv(K_l)
+    # inv_ex: linalg.inv's inverse without its check of the factorization's info, which
+    # waits for the device and so cannot be captured into a CUDA graph
+    K_l_inv = torch.linalg.inv_ex(K_l).inverse
     R_l_T = R_l.transpose(-1, -2)
     c_l = -(R_l_T @ t_l)
     M = (K_r @ R_r) @ (R_l_T @ K_l_inv)

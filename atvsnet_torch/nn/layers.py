@@ -144,7 +144,7 @@ def bf16_conv(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = N
                      groups=groups)
 
 
-reset_launch_counts = launch_counts(BF16_CONV_KINDS, bf16_conv)
+reset_launch_counts = launch_counts(BF16_CONV_KINDS, bf16_conv, recorded_only=True)
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

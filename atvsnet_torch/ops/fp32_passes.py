@@ -325,7 +325,8 @@ def pass_matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     return _PassMatmul.apply(a, b, check_mode(mode))
 
 
-reset_launch_counts = launch_counts(ROUNDED_MODES, pass_conv, pass_conv_transpose, pass_matmul)
+reset_launch_counts = launch_counts(ROUNDED_MODES, pass_conv, pass_conv_transpose, pass_matmul,
+                                     recorded_only=True)
 
 
 def matmul_plain(a, b, mode, g=None) -> dict:

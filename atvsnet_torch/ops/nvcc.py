@@ -2,7 +2,8 @@
 interface into a shared library under build/atvsnet_torch/, which `CudaLibrary` loads with
 ctypes. A build happens at first use (or when the source is newer than the library); the
 libraries are never committed. `launch_counts` and `count_launch` keep each launcher's
-counts of its launches, which tests, chip_smoke.py and the benchmark read."""
+counts of its launches, which tests, chip_smoke.py and the benchmark read; `counts_since`
+and `add_counts` let a CUDA graph's replay count what its capture counted."""
 
 from __future__ import annotations
 
@@ -95,10 +96,18 @@ def count_launch(launcher, path: str, shape) -> None:
     launcher.shape_launches[shape] = launcher.shape_launches.get(shape, 0) + 1
 
 
-def launch_counts(paths: Sequence[str], *launchers) -> Callable[[], None]:
+LAUNCHERS: list = []
+"""(launcher, recorded_only) of every launcher given counts by launch_counts."""
+
+
+def launch_counts(paths: Sequence[str], *launchers,
+                  recorded_only: bool = False) -> Callable[[], None]:
     """Give each launcher its counts, `launches` (in total), `path_launches` (per path of
     `paths`) and `shape_launches` (per key), all 0, and return the module's
-    reset_launch_counts, which sets them to 0 again."""
+    reset_launch_counts, which sets them to 0 again. recorded_only: the launchers count
+    only while a profiler records (utils.profiling.recording)."""
+    LAUNCHERS.extend((fn, recorded_only) for fn in launchers)
+
     def reset_launch_counts() -> None:
         """Set the kernel's launch counts (total, per path and per shape) to 0."""
         for fn in launchers:
@@ -108,3 +117,40 @@ def launch_counts(paths: Sequence[str], *launchers) -> Callable[[], None]:
 
     reset_launch_counts()
     return reset_launch_counts
+
+
+def snapshot_counts() -> list:
+    """Every launcher's counts as they are now, for counts_since."""
+    return [(fn, fn.launches, dict(fn.path_launches), dict(fn.shape_launches))
+            for fn, _ in LAUNCHERS]
+
+
+def counts_since(snapshot: list) -> list:
+    """The launches counted since `snapshot`, as (launcher, recorded_only, launches, per
+    path, per key) of each launcher that counted any; the counts are set back to the
+    snapshot's. A graph capture counts its launches once and each replay adds them."""
+    recorded = dict(LAUNCHERS)
+    deltas = []
+    for fn, launches, paths, shapes in snapshot:
+        n = fn.launches - launches
+        if n:
+            deltas.append((fn, recorded[fn], n,
+                           {k: v - paths.get(k, 0) for k, v in fn.path_launches.items()
+                            if v != paths.get(k, 0)},
+                           {k: v - shapes.get(k, 0) for k, v in fn.shape_launches.items()
+                            if v != shapes.get(k, 0)}))
+        fn.launches, fn.path_launches, fn.shape_launches = launches, paths, shapes
+    return deltas
+
+
+def add_counts(deltas: list, recording: bool) -> None:
+    """Add counts_since's deltas to the launchers' counts: all of them while a profiler
+    records, those of launchers that count whether or not one does otherwise."""
+    for fn, recorded_only, launches, paths, shapes in deltas:
+        if recorded_only and not recording:
+            continue
+        fn.launches += launches
+        for k, v in paths.items():
+            fn.path_launches[k] = fn.path_launches.get(k, 0) + v
+        for k, v in shapes.items():
+            fn.shape_launches[k] = fn.shape_launches.get(k, 0) + v

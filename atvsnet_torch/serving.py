@@ -17,6 +17,14 @@ Transfers: raw uint8 frames go up as uint8 (a quarter of the fp32 bytes) and are
 variance-normalized on the device; the 2-4 output maps come down as ONE packed fp32 row
 per sample, one device-to-host copy into pinned memory, sliced back on the host.
 
+On a CUDA device without a mesh, the device part of a request (centring, forward, packing)
+is one CUDA graph per program: a key (bucket, batch size, input dtype, preprocessed or not)
+is served eagerly the first time, then captured, and every later request of the key copies
+its inputs into the key's static buffers and replays the graph (ServingGraph). The graph
+runs the eager forward's kernels in its order, so the answers are the same bits; what it
+saves is the host's thousands of launches a map. A mesh, the CPU, or a forward put in the
+place of this module's `multi_view_forward` (or `two_view_forward`) is served eagerly.
+
 predict() serves one sample per call; predict_many() batches several requests through
 one forward. Normalization statistics are per sample, so a batched result is the
 single-request result up to the convolution library's choice of algorithm per batch size.
@@ -32,6 +40,7 @@ rank returns the same results.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Mapping, Optional, Sequence, Union
 
@@ -43,12 +52,14 @@ from atvsnet_torch.config import PipelineConfig
 from atvsnet_torch.data.cams import load_cam
 from atvsnet_torch.data.image_io import imread
 from atvsnet_torch.data.preprocess import prepare_mvs_sample
+from atvsnet_torch.models import atvsnet, tvsnet
 from atvsnet_torch.models.atvsnet import center_images, multi_view_forward, sweep_to_depth
 from atvsnet_torch.models.tvsnet import two_view_forward
+from atvsnet_torch.ops import nvcc
 from atvsnet_torch.params import init_model, load_model
 from atvsnet_torch.parallel.mesh import Mesh, gather_blocks, make_mesh, parse_mesh_spec
 from atvsnet_torch.parallel.pipeline import forward_rows
-from atvsnet_torch.utils.profiling import TRACER
+from atvsnet_torch.utils.profiling import TRACER, recording
 from atvsnet_torch.utils.transfer import finish_download, start_download
 
 # a bucket may override anything but the widths the shared model was built with
@@ -72,22 +83,90 @@ def packed_forward(model, c: PipelineConfig, images: np.ndarray, cams: np.ndarra
     the rows of every data rank come down, in batch order, on every rank.
 
     Traced (utils.profiling.TRACER) as forward.upload (the upload and the centring) and
-    forward.pack (the maps' packing and the download's start) around the forward.
+    forward.pack (the download's start) around device_forward.
     """
     with TRACER.span("forward.upload"):
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-        x = x.to(torch.float32) if centered else center_images(x)
+        x = normalized(torch.from_numpy(np.ascontiguousarray(images)).to(device), centered)
+    packed = device_forward(model, c, x, cams, maps_of, mesh, **forward_kw)
+    with TRACER.span("forward.pack"):
+        return start_download(packed if mesh is None else gather_blocks(packed, mesh.data_group))
+
+
+def normalized(images: torch.Tensor, centered: bool) -> torch.Tensor:
+    """The forward's fp32 input: the images as they are if `centered`, else normalized on
+    the device (center_images)."""
+    return images.to(torch.float32) if centered else center_images(images)
+
+
+@torch.no_grad()
+def device_forward(model, c: PipelineConfig, x: torch.Tensor, cams, maps_of,
+                   mesh: Optional[Mesh] = None, **forward_kw) -> torch.Tensor:
+    """packed_forward's forward and packing: x (B, N, H, W, 3) normalized on the device and
+    cams (B, N, 2, 4, 4) -> ONE flat fp32 row per sample of the maps `maps_of(out)` picks,
+    one after the other. Of the forward's outputs only the rows outlive the call: without a
+    mesh, ServingGraph captures it, with the normalization before it."""
     if c.view_num == 2:
         out = two_view_forward(model, x, cams, c)
     elif mesh is None:
         out = multi_view_forward(model, x, cams, c, **forward_kw)
     else:
         out = forward_rows(model, x, cams, c, mesh, **forward_kw)
-    with TRACER.span("forward.pack"):
-        parts = maps_of(out)
-        b = parts[0].shape[0]
-        packed = torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1)
-        return start_download(packed if mesh is None else gather_blocks(packed, mesh.data_group))
+    parts = maps_of(out)
+    b = parts[0].shape[0]
+    return torch.cat([p.to(torch.float32).reshape(b, -1) for p in parts], dim=1)
+
+
+def graph_key(c: PipelineConfig, images: np.ndarray, centered: bool) -> tuple:
+    """The program a request runs: bucket, batch size, input dtype and whether the images
+    come preprocessed. One CUDA graph serves each key."""
+    return c, images.shape[0], np.dtype(images.dtype).str, centered
+
+
+class ServingGraph:
+    """One key's captured program: static device buffers for the images and cams (filled
+    from pinned staging), the CUDA graph of device_forward on them, and its packed row.
+
+    The capture counts what the forward's host code counts once (launch counters of
+    ops.nvcc, profiling.TRACER's counters, under utils.profiling's template as though a
+    profiler recorded) and records the forward's spans into a template whose CUDA events
+    are nodes of the graph; each replay adds those counts (the ones that count only
+    under a profiler only while one records) and, after its download, the spans."""
+
+    def __init__(self, model, c: PipelineConfig, images: np.ndarray, cams: np.ndarray,
+                 centered: bool, maps_of, pool, stream: torch.cuda.Stream, **forward_kw):
+        """Capture the program of images and cams like these (their values are not read)
+        on `stream`, into the memory pool `pool`."""
+        device = next(model.parameters()).device
+        pinned = device.type == "cuda"
+        self.staging = (torch.empty(images.shape, dtype=torch.from_numpy(images[:0]).dtype,
+                                    pin_memory=pinned),
+                        torch.empty(cams.shape, dtype=torch.float32, pin_memory=pinned))
+        self.images, self.cams = (torch.empty_like(t, device=device) for t in self.staging)
+        self.graph = torch.cuda.CUDAGraph()
+        before = nvcc.snapshot_counts()
+        with TRACER.template() as self.template:
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                self.row = device_forward(model, c, normalized(self.images, centered),
+                                          self.cams, maps_of, **forward_kw)
+        self.counts = nvcc.counts_since(before)
+
+    def upload(self, images: np.ndarray, cams: np.ndarray) -> None:
+        """Copy a request into the static buffers, through the pinned staging."""
+        self.staging[0].numpy()[...] = images
+        self.staging[1].numpy()[...] = cams
+        for dst, src in zip((self.images, self.cams), self.staging):
+            dst.copy_(src, non_blocking=True)
+
+    def replay(self) -> tuple[int, int]:
+        """Run the graph on what the buffers hold and count its launches; returns the host
+        interval of the launch (time.time_ns), for TRACER.replay."""
+        t0 = time.time_ns()
+        self.graph.replay()
+        t1 = time.time_ns()
+        nvcc.add_counts(self.counts, recording())
+        for name, n in self.template.counters.items():
+            TRACER.count(name, n)
+        return t0, t1
 
 
 def unpack_rows(packed: np.ndarray, names, shapes) -> list[dict]:
@@ -139,6 +218,8 @@ class DepthEstimator:
         else:
             self.model = init_model(self.cfg, seed, self.device)
         self._buckets: list[PipelineConfig] = []
+        self._graphs: dict[tuple, ServingGraph] = {}
+        self._stream = self._pool = None     # of the captures (_capture_stream)
         self.add_bucket()  # base bucket from self.cfg
 
     # ---- bucket registry -------------------------------------------------
@@ -174,9 +255,24 @@ class DepthEstimator:
         """Names and (rows, cols) of the maps in one packed row, in order."""
         H, W = c.max_h, c.max_w
         h, w = int(H * c.sample_scale), int(W * c.sample_scale)
-        with_conf = self.with_confidence and c.view_num > 2
+        with_conf = self._with_conf(c)
         names = ["depth", "depth_up"] + (["confidence", "confidence_up"] if with_conf else [])
         return names, [(h, w), (H, W)] * (2 if with_conf else 1)
+
+    def _with_conf(self, c: PipelineConfig) -> bool:
+        return self.with_confidence and c.view_num > 2
+
+    def _maps_of(self, c: PipelineConfig):
+        """The function that picks a packed row's maps (_map_layout's order) from the
+        forward's outputs: metric depths, then the confidences."""
+        with_conf = self._with_conf(c)
+
+        def maps_of(out):
+            parts = [sweep_to_depth(out["depth"], c.inverse_depth),
+                     sweep_to_depth(out["depth_up"], c.inverse_depth)]
+            return parts + ([out["confidence"], out["confidence_up"]] if with_conf else [])
+
+        return maps_of
 
     @torch.no_grad()
     def _forward(self, c: PipelineConfig, images: np.ndarray, cams: np.ndarray,
@@ -189,25 +285,78 @@ class DepthEstimator:
         Returns the per-sample maps (numpy views into the downloaded row) and the seconds
         from before the upload until the download has finished (the spans serve.forward and
         serve.download).
+
+        A key's first request runs packed_forward; where _graphable holds it is then
+        captured (ServingGraph) and answered by the graph's first replay, as every later
+        request of the key is: serve.forward then holds forward.upload (into the static
+        buffers), serve.graph.replay (the launch) and forward.pack (the download's start),
+        and the forward's spans, read off the replay, follow serve.download under it. The
+        TRACER counters serve.graph.eager, .captures and .replays count the requests
+        served eagerly, the captures and the replays.
         """
-        with_conf = self.with_confidence and c.view_num > 2
-
-        def maps_of(out):
-            parts = [sweep_to_depth(out["depth"], c.inverse_depth),
-                     sweep_to_depth(out["depth_up"], c.inverse_depth)]
-            return parts + ([out["confidence"], out["confidence_up"]] if with_conf else [])
-
+        with_conf, maps_of = self._with_conf(c), self._maps_of(c)
         if self.mesh is not None:
             images, cams = self.mesh.data_rows(images), self.mesh.data_rows(cams)
         clock = {"runtime_s": 0.0}
-        with TRACER.span("serve.forward", into=clock, key="runtime_s"):
-            download = packed_forward(self.model, c, images, cams, self.device, centered,
-                                      maps_of, self.mesh, out_prob_map=with_conf)
-        with TRACER.span("serve.download", into=clock, key="runtime_s"):
-            packed = finish_download(*download)
+        key = graph_key(c, images, centered)
+        graph = self._graphs.get(key)
+        if graph is None:
+            TRACER.count("serve.graph.eager", 1)
+            graphable = self._graphable()
+            with self._capture_stream() if graphable else contextlib.nullcontext():
+                with TRACER.span("serve.forward", into=clock, key="runtime_s"):
+                    download = packed_forward(self.model, c, images, cams, self.device,
+                                              centered, maps_of, self.mesh,
+                                              out_prob_map=with_conf)
+                with TRACER.span("serve.download", into=clock, key="runtime_s"):
+                    packed = finish_download(*download)
+                if graphable:
+                    # the eager forward built the kernels, fixed cuDNN's plans and the
+                    # resize matrices: capture it, and answer with the graph's first replay
+                    with TRACER.span("serve.graph.capture"):
+                        graph = self._graphs[key] = ServingGraph(
+                            self.model, c, images, cams, centered, maps_of, self._pool,
+                            self._stream, out_prob_map=with_conf)
+                    TRACER.count("serve.graph.captures", 1)
+        if graph is not None:
+            TRACER.count("serve.graph.replays", 1)
+            with TRACER.span("serve.forward", into=clock, key="runtime_s") as parent:
+                with TRACER.span("forward.upload"):
+                    graph.upload(images, cams)
+                with TRACER.span("serve.graph.replay"):
+                    launched = graph.replay()
+                with TRACER.span("forward.pack"):
+                    download = start_download(graph.row)
+            with TRACER.span("serve.download", into=clock, key="runtime_s"):
+                packed = finish_download(*download)
+            TRACER.replay(graph.template, parent, *launched)
         with TRACER.span("serve.unpack"):
             maps = unpack_rows(packed, *self._map_layout(c))
         return maps, clock["runtime_s"]
+
+    @contextlib.contextmanager
+    def _capture_stream(self):
+        """Run the block on the estimator's side stream (made at first use, with the memory
+        pool its graphs share), ordered after the caller's stream and before what the
+        caller queues next. A capture cannot run on the default stream; a key's eager
+        first request runs there too, so that the capture finds the state the eager
+        forward left per stream (cuBLAS's workspace) instead of allocating it again."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            yield
+        caller.wait_stream(self._stream)
+
+    def _graphable(self) -> bool:
+        """Whether requests are served by CUDA graphs: on a CUDA device, without a mesh
+        (its collectives are not captured), with this module's forwards the package's own
+        (a forward put in their place may copy from the host, which no capture can)."""
+        return (self.device.type == "cuda" and self.mesh is None
+                and multi_view_forward is atvsnet.multi_view_forward
+                and two_view_forward is tvsnet.two_view_forward)
 
     @staticmethod
     def _result(c: PipelineConfig, maps: dict, valid_hw, runtime: float) -> dict:
@@ -250,7 +399,8 @@ class DepthEstimator:
         """Run the deployment (raw uint8 input) path once on synthetic inputs, for the base
         bucket or all of them; returns seconds. The first forward of a shape pays the
         kernel build (once per process), cuDNN's algorithm choice and the allocator's
-        growth. include_pre=True also runs the preprocessed=True path."""
+        growth, and on a CUDA device without a mesh the capture of its program's graph.
+        include_pre=True also runs the preprocessed=True path."""
         t0 = time.perf_counter()
         for c in self.buckets:
             rng = np.random.RandomState(0)

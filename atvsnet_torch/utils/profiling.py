@@ -17,6 +17,12 @@ MAX_SPANS of them (the rest are counted in `dropped`); device_trace writes a ses
 as device-side annotations in the profiler's CUDA activity, and the device trace holds the
 same operations with spans as without. `TRACER.count(name, n)` adds n to the counter `name`
 in `TRACER.counters`, also only while a session records.
+
+A CUDA graph runs its forward without the host code that records these. `TRACER.template()`
+records a capture as though a session recorded, into a Template of its own: its spans' CUDA
+events are external ones, which the capture turns into nodes of the graph, so every replay
+records them again. After a replay has completed, `TRACER.replay` adds the template's spans
+under the replay's parent span, each with the device ms its events read then.
 """
 
 from __future__ import annotations
@@ -35,32 +41,50 @@ from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
 MAX_SPANS = 1 << 20
 _NULL = contextlib.nullcontext()
+_templates = 0      # StageTimer.template blocks open: they record as a session would
 
 if hasattr(_autograd_profiler, "_is_profiler_enabled"):
-    def recording() -> bool:
-        """Whether a torch.profiler session is recording (one attribute read)."""
+    def _session() -> bool:
         return _autograd_profiler._is_profiler_enabled
 else:  # pragma: no cover - older torch without the Python-side flag
-    recording = torch._C._autograd._profiler_enabled
+    _session = torch._C._autograd._profiler_enabled
+
+
+def recording() -> bool:
+    """Whether a torch.profiler session is recording, or a template (StageTimer.template)."""
+    return _session() or _templates > 0
 
 
 class Span:
     """One recorded interval. parent is the index of the enclosing span in the recorder's
     list (None for a root or a dropped parent); events the (start, end) CUDA events of a
-    stage run with a CUDA device, else None."""
+    stage run with a CUDA device, else None; ms the device milliseconds of a span read off
+    a graph's replay (StageTimer.replay), which has no events of its own."""
 
-    __slots__ = ("name", "start_ns", "end_ns", "parent", "request", "events", "index")
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "request", "events", "index", "ms")
 
-    def __init__(self, name, start_ns, parent, request, events, index):
+    def __init__(self, name, start_ns, parent, request, events, index, ms=None):
         self.name, self.start_ns, self.end_ns = name, start_ns, None
         self.parent, self.request, self.events, self.index = parent, request, events, index
+        self.ms = ms
 
     def device_ms(self) -> Optional[float]:
         """Device milliseconds between the span's events, once the end event has completed;
-        None without events or before then. It never waits for the device."""
-        if self.events is None or not self.events[1].query():
+        the given ms without events; else None. It never waits for the device."""
+        if self.events is None:
+            return self.ms
+        if not self.events[1].query():
             return None
         return self.events[0].elapsed_time(self.events[1])
+
+
+class Template:
+    """What one captured forward recorded (StageTimer.template): its spans, in order, with
+    parents indexing this list (None: the capture's root), and its counters."""
+
+    def __init__(self):
+        self.spans: list[Span] = []
+        self.counters: Dict[str, int] = {}
 
 
 class _Clock:
@@ -147,6 +171,7 @@ class StageTimer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._requests = itertools.count()
+        self._external = False     # inside template(): events a graph capture records
 
     def stage(self, name: str, device: Optional[torch.device] = None, into=None,
               key: Optional[str] = None, request=None, chain: bool = True) -> _Stage:
@@ -177,6 +202,13 @@ class StageTimer:
             local.stack, local.last = [], None
         return local.stack
 
+    def _event(self) -> torch.cuda.Event:
+        """A timing event; inside template() an external one, which a capture records as a
+        node of its graph."""
+        if self._external:
+            return torch.cuda.Event(enable_timing=True, external=True)
+        return torch.cuda.Event(enable_timing=True)
+
     def _open(self, name, device, request, chain=True) -> Span:
         stack = self._stack()
         top = stack[-1] if stack else None
@@ -190,9 +222,9 @@ class StageTimer:
                     and top.events is not None):
                 start = last.events[1]
             else:
-                start = torch.cuda.Event(enable_timing=True)
+                start = self._event()
                 start.record(torch.cuda.current_stream(device))
-            events = (start, torch.cuda.Event(enable_timing=True))
+            events = (start, self._event())
         self._local.last = None
         with self._lock:
             index = len(self.spans) if len(self.spans) < self.limit else None
@@ -217,6 +249,54 @@ class StageTimer:
         self.totals[span.name] = self.totals.get(span.name, 0.0) + seconds
         self.counts[span.name] = self.counts.get(span.name, 0) + 1
         return seconds
+
+    @contextlib.contextmanager
+    def template(self):
+        """Record the block, a CUDA graph's capture, as though a session recorded, into a
+        fresh Template (yielded) instead of this recorder: spans opened in the block go to
+        its list, their CUDA events are external (nodes of the graph being captured), and
+        counts go to its counters. The block runs on one thread, with the recorder's spans,
+        counters and totals put back as they were when it ends."""
+        global _templates
+        t, local = Template(), self._local
+        self._stack()
+        saved = (self.spans, self.counters, self.totals, self.counts, self.dropped,
+                 local.stack, local.last)
+        self.spans, self.counters, self.totals, self.counts = t.spans, t.counters, {}, {}
+        local.stack, local.last = [], None
+        self._external = True
+        _templates += 1
+        try:
+            yield t
+        finally:
+            _templates -= 1
+            self._external = False
+            (self.spans, self.counters, self.totals, self.counts, self.dropped,
+             local.stack, local.last) = saved
+
+    def replay(self, template: Template, parent: Optional[Span], start_ns: int,
+               end_ns: int) -> None:
+        """Add the spans of one replay of a template's graph: the template's spans in order,
+        under `parent` (the span the replay ran in; nothing is added without one, as when no
+        session records) and with its request id, on the host interval [start_ns, end_ns]
+        of the replay's launch, each with the device ms its events read now. Call it once
+        the replay has completed on the device."""
+        if parent is None:
+            return
+        added: list[Optional[int]] = []
+        with self._lock:
+            for s in template.spans:
+                index = len(self.spans) if len(self.spans) < self.limit else None
+                up = parent.index if s.parent is None else added[s.parent]
+                span = Span(s.name, start_ns, up, parent.request, None, index, s.device_ms())
+                span.end_ns = end_ns
+                added.append(index)
+                if index is None:
+                    self.dropped += 1
+                else:
+                    self.spans.append(span)
+                self.totals[s.name] = self.totals.get(s.name, 0.0) + (end_ns - start_ns) / 1e9
+                self.counts[s.name] = self.counts.get(s.name, 0) + 1
 
     def between(self, start_ns: int, end_ns: int) -> list[Span]:
         """The closed spans that lie inside [start_ns, end_ns]."""

@@ -89,6 +89,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
                 prepared inputs), a second bucket that pads a 250x300 request, predict_many
                 against predict, median runtime_s of 5 requests, an off-bucket
                 preprocessed request that must raise
+ 9b. graphs     DepthEstimator's CUDA graphs (serving.ServingGraph) in the four served
+                numerics (highest, int8mxu, default, bf16 + int8s) at 480x896 and
+                256x320: three requests with their own images and cams, each replay
+                equal to the eager packed_forward to the bit (deterministic cuDNN); one
+                request of each under a profiler: the launch counters, TRACER's counters
+                and the device spans' names of a replay against an eager forward's, the
+                device operations of each; max_memory_allocated of the capture's request
+                against the eager forward's (1%), with max_memory_reserved and what the
+                graph's pool keeps reserved after empty_cache; then eager
+                against replay over GRAPH_REQUESTS requests each (cuDNN's default
+                algorithms): request median and p95, runtime_s, device busy ms, the
+                host's launch ms
  10. example    cli.example.run_example on an example/0 directory written into a temp dir
                 (5 rendered views, 480x896, D=128): the files, a finite error report
  11. native     g++ builds native/atvsnet_native.cpp into build/atvsnet_torch/; the library
@@ -180,8 +192,8 @@ same volume.
 Then the nvidia-smi line, the kernels line, and last {"ok": true, "device": {...}}.
 
 It needs CUDA: without it, it exits non-zero before printing any result. It imports
-nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d deconv3d sweep native
-fusion eval train parallel quant depth precision helpers` runs just those phases after device
+nothing of JAX or of atvsnet_tpu. `--only kernels int8 conv2d conv3d deconv3d sweep graphs
+native fusion eval train parallel quant depth precision helpers` runs just those phases after device
 and build (kernels: every kernel check and kernel timing above; int8: the int8 conv's checks,
 the flagship int8mxu forward and its profile, the int8 conv's times; conv2d, conv3d,
 deconv3d, sweep: the fp32 conv2d, conv3d or transposed conv3d kernel's or the plane-sweep
@@ -198,6 +210,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import functools
 import glob
 import json
 import math
@@ -209,6 +222,7 @@ import sys
 import tempfile
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -254,8 +268,10 @@ from atvsnet_torch.ops import softargmin as S
 from atvsnet_torch.params import load_model
 from atvsnet_torch.parallel.mesh import auto_mesh_shape, make_mesh
 from atvsnet_torch.parallel.pipeline import sharded_forward
-from atvsnet_torch.serving import DepthEstimator
-from atvsnet_torch.utils.profiling import StageTimer, device_trace
+from atvsnet_torch.ops import nvcc
+from atvsnet_torch.serving import DepthEstimator, graph_key, packed_forward, unpack_rows
+from atvsnet_torch.utils.profiling import TRACER, StageTimer, device_trace
+from atvsnet_torch.utils.transfer import finish_download
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPHERES = os.path.join(ROOT, "artifacts", "trained_demo", "spheres_params.npz")
@@ -1263,13 +1279,15 @@ def confidence_agreement(got, ref, depth_index, margin=1e-3):
 
 
 def phase_serving(cfg):
+    # deterministic cuDNN from the warm-up on: the graph it captures keeps the algorithms
+    # cuDNN picks then, and the requests below are held to the bare forward under them
+    torch.backends.cudnn.deterministic = True
     est = DepthEstimator(cfg, params_path=SPHERES)
     warmup_s = est.warmup()
     frames, cams = serving_request(0, cfg)
     H, W, h, w = cfg.max_h, cfg.max_w, cfg.max_h // 4, cfg.max_w // 4
 
     # one request, against the bare forward on the same prepared inputs
-    torch.backends.cudnn.deterministic = True
     S.reset_launch_counts()
     out = est.predict(frames, cams)
     by_shape = dict(S.softargmin_cuda.shape_launches)
@@ -1317,8 +1335,10 @@ def phase_serving(cfg):
     except ValueError:
         raised = True
 
-    # steady requests on the flagship bucket, cuDNN's default algorithms, in turns with the
-    # bare forward (out_prob_map=True) on the same prepared inputs already on the card
+    # steady requests on the flagship bucket, cuDNN's default algorithms (a fresh estimator,
+    # whose graph is captured with them), in turns with the bare forward (out_prob_map=True)
+    # on the same prepared inputs already on the card
+    est = DepthEstimator(cfg, params_path=SPHERES)
     x = center_images(torch.from_numpy(batch["images"]).cuda())
     device_cams = torch.from_numpy(batch["cams"]).cuda()
     est.predict(frames, cams)
@@ -1352,6 +1372,174 @@ def phase_serving(cfg):
          peak_memory_bytes=peak, depth_mean=float(out["depth"].mean()), ok=ok)
     if not ok:
         raise AssertionError("serving phase failed; see the line above")
+
+
+# the served numerics of the benchmark's cells, and their buckets
+GRAPH_MODES = {"highest": {}, "int8mxu": dict(act_quant="int8mxu"),
+               "default": dict(fp32_precision="default"),
+               "bf16_int8s": dict(compute_dtype="bfloat16", act_quant="int8s", warp_quant="int8")}
+GRAPH_BUCKETS = ((480, 896), (256, 320))
+GRAPH_REQUESTS = 20
+
+
+def profiled_request(fn) -> dict:
+    """fn() under a CUDA profiler session: the launch counts it added by launcher, TRACER's
+    counters (but serve.*), the device spans' (name, parent's name) in order, every span's
+    device ms, and the device operations, their busy ms and their names."""
+    before, counters, first = nvcc.snapshot_counts(), dict(TRACER.counters), len(TRACER.spans)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = {f"{fn_.__module__}.{fn_.__name__}": [n, paths, shape_counts(shapes)]
+                for fn_, _, n, paths, shapes in nvcc.counts_since(before)}
+    device = [s_ for s_ in TRACER.spans[first:] if s_.events is not None or s_.ms is not None]
+    named = {s_.index: s_.name for s_ in device}
+    ops = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b, _ in ops:
+        busy += max(0, b - max(a, end or a))
+        end = max(b, end or b)
+    return {"launches": launches,
+            "counters": {k: v - counters.get(k, 0) for k, v in TRACER.counters.items()
+                         if v != counters.get(k, 0) and not k.startswith("serve.")},
+            "spans": [(s_.name, named.get(s_.parent)) for s_ in device],
+            "device_ms": [s_.device_ms() for s_ in device],
+            "ops": len(ops), "busy_ms": busy / 1e6,
+            "op_names": sorted(n for _, _, n in ops)}
+
+
+@functools.lru_cache(maxsize=None)
+def graph_requests(hw, n, first_seed):
+    """n serving requests of their own images and cams, rendered at the flagship size (the
+    same in every numerics), that route to the (h, w) bucket."""
+    cfg = PipelineConfig()
+    size = None if hw == (cfg.max_h, cfg.max_w) else (hw[0] - 16, hw[1])
+    return tuple(serving_request(first_seed + k, cfg, size=size) for k in range(n))
+
+
+def phase_graphs():
+    """serving.ServingGraph in every served numerics at both buckets (the module docstring,
+    9b). Returns nothing; raises if a replay differs from the eager forward."""
+    failures = []
+    for mode, kw in GRAPH_MODES.items():
+        cfg = PipelineConfig(**kw)
+        # bits, counts, spans and memory: deterministic cuDNN on both sides
+        torch.backends.cudnn.deterministic = True
+        est = DepthEstimator(cfg, params_path=SPHERES)
+        est.add_bucket(max_h=256, max_w=320)
+        for hw in GRAPH_BUCKETS:
+            prepared = [est._prepare_request(f, c, False)
+                        for f, c in graph_requests(hw, 3, 100)]
+            c = prepared[0][0]
+            assert (c.max_h, c.max_w) == hw, (c.max_h, c.max_w)
+            maps_of, with_conf = est._maps_of(c), est._with_conf(c)
+
+            def eager(batch):
+                # on the stream of the key's eager first request: the cuBLAS workspace the
+                # capture then uses is this forward's
+                with est._capture_stream():
+                    rows = finish_download(*packed_forward(
+                        est.model, c, batch["images"], batch["cams"], est.device, False,
+                        maps_of, out_prob_map=with_conf))
+                return unpack_rows(rows, *est._map_layout(c))[0]
+
+            def replay(batch):
+                return est._forward(c, batch["images"], batch["cams"], False)[0][0]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            want = [eager(b) for _, b in prepared]
+            eager_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            got = [replay(prepared[0][1])]          # eager, capture, first replay
+            capture_peak = torch.cuda.max_memory_allocated()
+            # what the graph keeps reserved: its pool's segments (and the static buffers),
+            # which empty_cache cannot release while the graph lives
+            torch.cuda.empty_cache()
+            pool_reserved = torch.cuda.memory_reserved() - reserved
+            torch.cuda.reset_peak_memory_stats()
+            got += [replay(b) for _, b in prepared[1:]]
+            replay_peak = torch.cuda.max_memory_allocated()
+            equal = [all(np.array_equal(g[k], w[k]) for k in w) for g, w in zip(got, want)]
+            e = profiled_request(lambda: eager(prepared[1][1]))
+            r = profiled_request(lambda: replay(prepared[2][1]))
+            same = {k: e[k] == r[k] for k in ("launches", "counters", "spans")}
+            ok = (all(equal) and all(same.values()) and capture_peak <= 1.01 * eager_peak
+                  and all(ms is not None for ms in r["device_ms"])
+                  and len(est._graphs) == GRAPH_BUCKETS.index(hw) + 1)
+            emit(phase="graphs", mode=mode, bucket=list(hw), replay_equals_eager=equal,
+                 same_as_eager=same, spans=len(r["spans"]), eager_ops=e["ops"],
+                 replay_ops=r["ops"],
+                 eager_only_ops=dict(Counter(e["op_names"]) - Counter(r["op_names"])),
+                 replay_only_ops=dict(Counter(r["op_names"]) - Counter(e["op_names"])),
+                 eager_busy_ms=e["busy_ms"], replay_busy_ms=r["busy_ms"],
+                 launches=sum(v[0] for v in r["launches"].values()),
+                 eager_peak_bytes=eager_peak, capture_peak_bytes=capture_peak,
+                 replay_peak_bytes=replay_peak, graph_pool_reserved_bytes=pool_reserved,
+                 max_memory_reserved=torch.cuda.max_memory_reserved(),
+                 memory_reserved=torch.cuda.memory_reserved(), ok=ok)
+            if not ok:
+                failures.append((mode, hw))
+                if not all(same.values()):
+                    emit(phase="graphs_diff", mode=mode, bucket=list(hw),
+                         eager={k: e[k] for k in same if not same[k]},
+                         replay={k: r[k] for k in same if not same[k]})
+        del est
+        torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+
+        # eager against replay, cuDNN's default algorithms
+        timed = {}
+        for graphs in (False, True):
+            est = DepthEstimator(cfg, params_path=SPHERES)
+            est.add_bucket(max_h=256, max_w=320)
+            if not graphs:
+                est._graphable = lambda: False
+            for hw in GRAPH_BUCKETS:
+                requests = graph_requests(hw, 4, 200)
+                for f, c_ in requests[:2]:
+                    est.predict(f, c_)               # warm: the capture falls here
+                walls, runtimes = [], []
+                for k in range(GRAPH_REQUESTS):
+                    t0 = time.perf_counter()
+                    runtimes.append(est.predict(*requests[k % len(requests)])["runtime_s"])
+                    walls.append(time.perf_counter() - t0)
+                c, batch = est._prepare_request(*requests[0], False)
+                prof = profiled_request(lambda: est._forward(c, batch["images"], batch["cams"],
+                                                             False))
+                if graphs:
+                    graph = est._graphs[graph_key(c, batch["images"], False)]
+                    graph.upload(batch["images"], batch["cams"])
+                    t0 = time.perf_counter()
+                    graph.replay()
+                    launch_ms = (time.perf_counter() - t0) * 1e3
+                else:
+                    t0 = time.perf_counter()
+                    download = packed_forward(est.model, c, batch["images"], batch["cams"],
+                                              est.device, False, est._maps_of(c),
+                                              out_prob_map=est._with_conf(c))
+                    launch_ms = (time.perf_counter() - t0) * 1e3
+                    finish_download(*download)
+                torch.cuda.synchronize()
+                timed[("replay" if graphs else "eager", hw)] = {
+                    "request_ms_median": float(np.median(walls)) * 1e3,
+                    "request_ms_p95": float(np.percentile(walls, 95)) * 1e3,
+                    "runtime_ms_median": float(np.median(runtimes)) * 1e3,
+                    "device_busy_ms": prof["busy_ms"], "device_ops": prof["ops"],
+                    "launch_ms": launch_ms}
+            del est
+            torch.cuda.empty_cache()
+        for hw in GRAPH_BUCKETS:
+            emit(phase="graphs_timing", mode=mode, bucket=list(hw), requests=GRAPH_REQUESTS,
+                 eager=timed[("eager", hw)], replay=timed[("replay", hw)],
+                 request_median_ratio=timed[("replay", hw)]["request_ms_median"]
+                 / timed[("eager", hw)]["request_ms_median"])
+    if failures:
+        raise AssertionError(f"graphs: replays differ from the eager forward at {failures}")
 
 
 def phase_example(cfg):
@@ -3791,7 +3979,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--only", nargs="+",
                     choices=["kernels", "int8", "conv2d", "conv3d", "deconv3d", "sweep",
-                             "native", "fusion",
+                             "graphs", "native", "fusion",
                              "eval", "train", "parallel", "quant", "depth", "precision",
                              "helpers"],
                     default=None,
@@ -3844,7 +4032,7 @@ def main() -> int:
              "conv2d": lambda: phase_conv2d(kind), "conv3d": lambda: phase_conv3d(kind),
              "deconv3d": lambda: phase_deconv3d(kind),
              "sweep": lambda: phase_sweep(kind),
-             "native": phase_native,
+             "graphs": phase_graphs, "native": phase_native,
              "fusion": lambda: phase_fusion(kind),
              "eval": phase_eval, "train": phase_train, "parallel": phase_parallel,
              "quant": phase_quant, "helpers": phase_helpers, "precision": phase_precision,
@@ -3878,6 +4066,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_serving(cfg)
+    phase_graphs()
     phase_example(cfg)
     phase_native()
     phase_fusion(kind)
